@@ -1,0 +1,27 @@
+"""olmo-1b [dense] — 16L d_model=2048 16H d_ff=8192 vocab=50304.
+Non-parametric LayerNorm (no learnable scale/bias); SwiGLU; tied embeddings.
+[arXiv:2402.00838; hf]"""
+import dataclasses
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="olmo-1b",
+    family="dense",
+    num_layers=16,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=16,
+    head_dim=128,
+    d_ff=8192,
+    vocab_size=50304,
+    mlp_type="swiglu",
+    norm_type="non_parametric",
+    tie_embeddings=True,
+    rope_theta=10_000.0,
+)
+
+SMOKE_CONFIG = dataclasses.replace(
+    CONFIG,
+    num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
+    d_ff=128, vocab_size=256, dtype="float32", remat=False,
+)

@@ -1,0 +1,119 @@
+"""Where the serving path's time goes on the card.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve
+
+Runs full-width olmo-1b in bf16 with seeded random weights at the shapes of
+``chip_smoke.py``'s serve phase and, for each of the two serving phases,
+takes the host wall time of the phase (median of ``REPEATS`` runs, each
+ended by a synchronize) and one ``torch.profiler`` trace of it:
+
+  * prefill — ``prefill_step`` of one ``PROMPT_LEN``-token request filling a
+    ``BUCKET`` cache (what TTFT pays once per request, less the queue wait);
+  * decode  — ``STEPS`` batched ``decode_step`` calls of ``BATCH`` slots at
+    depth ``DEPTH`` in a ``MAX_LEN`` cache (what TPOT pays).
+
+Each phase prints one JSON line: wall ms, device (kernel) ms from the
+trace, the device's busy share of the wall time, and the kernels that
+take the most device time.  Needs the card.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs.registry import get_config
+from repro_torch.models import decode_step, init_cache, init_params, prefill_step
+
+ARCH = "olmo-1b"
+BUCKET, PROMPT_LEN = 2048, 1536  # the serve phase's longest prompt, its bucket
+BATCH, MAX_LEN, DEPTH = 4, 2048, 1024  # its engine's slots and cache, half full
+STEPS = 10  # decode steps per timed call
+REPEATS = 5
+TOP = 8  # kernels listed per phase
+
+
+def _wall_ms(fn) -> float:
+    fn()  # warm-up: library handles, kernel build and load
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _kernels(fn) -> tuple[float, list[dict]]:
+    """Device ms of one traced call of ``fn`` and its ``TOP`` kernels."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [
+        (e.key, e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    total = sum(ms for _, ms, _ in rows)
+    rows.sort(key=lambda r: -r[1])
+    return total, [
+        {"kernel": name[:90], "ms": ms, "share": ms / total if total else 0.0, "calls": n}
+        for name, ms, n in rows[:TOP]
+    ]
+
+
+def _report(phase: str, fn, calls: int, **extra) -> None:
+    """One JSON line for ``fn``, which makes ``calls`` calls of the phase;
+    times are per call."""
+    wall_ms = _wall_ms(fn) / calls
+    device_ms, kernels = _kernels(fn)
+    device_ms /= calls
+    for k in kernels:
+        k["ms"] /= calls
+        k["calls"] //= calls
+    print(json.dumps({
+        "phase": phase, **extra, "wall_ms_per_call": wall_ms,
+        "device_ms_per_call": device_ms, "device_busy_share": device_ms / wall_ms,
+        "top_kernels": kernels,
+    }), flush=True)
+
+
+@torch.no_grad()
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve measures the card; no CUDA device found")
+
+    cfg = get_config(ARCH)
+    params = init_params(cfg, 0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "arch": cfg.name,
+                      "dtype": cfg.dtype}), flush=True)
+
+    tokens = torch.randint(0, cfg.vocab_size, (1, BUCKET), generator=gen, device="cuda")
+
+    def prefill():
+        cache = init_cache(cfg, 1, BUCKET, "cuda")
+        prefill_step(params, cfg, tokens, cache, [PROMPT_LEN])
+
+    _report("prefill", prefill, 1, bucket=BUCKET, prompt_len=PROMPT_LEN)
+
+    cache = init_cache(cfg, BATCH, MAX_LEN, "cuda")
+    cache = cache._replace(lengths=torch.full_like(cache.lengths, DEPTH))
+    step_tokens = torch.randint(0, cfg.vocab_size, (BATCH, 1), generator=gen, device="cuda")
+    positions = torch.full((BATCH,), DEPTH, dtype=torch.int32, device="cuda")
+
+    def decode():
+        # Every step writes row DEPTH again, so the cache stays as it is.
+        for _ in range(STEPS):
+            decode_step(params, cfg, step_tokens, cache, positions)
+
+    _report("decode", decode, STEPS, batch=BATCH, depth=DEPTH, max_len=MAX_LEN)
+
+
+if __name__ == "__main__":
+    main()

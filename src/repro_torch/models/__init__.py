@@ -1,0 +1,8 @@
+from .model import (  # noqa: F401
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    insert_cache,
+    prefill_step,
+)

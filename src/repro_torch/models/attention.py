@@ -1,0 +1,194 @@
+"""GQA attention layer: params, forward (train/prefill), decode with KV cache
+(counterpart of ``repro.models.attention``).
+
+``cfg.attention_impl`` selects
+
+  * ``systolic`` or ``pallas`` — ``flash_attention``: the hand-written CUDA
+    kernel for tensors on the card, its plain tiled Algorithm 1 for tensors
+    on the CPU (both compute the reference's ``systolic`` and ``pallas``);
+  * ``naive`` — materialised softmax (the oracle).
+
+Per the paper §8.3, decode (one query token, memory-bound) never uses the
+FSA path: ``decode_attention`` is a grouped matmul and softmax over the
+cache, as in the reference.
+
+The KV cache is updated in place: ``prefill_attention`` writes the chunk's
+rows and ``decode_attention`` scatters one row per slot into the tensors of
+the cache it is given (the reference returns updated copies).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.attention import naive_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.quant import get_quant
+from .layers import apply_mrope, apply_rope, dense_init, rms_norm
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [B, max_len, Hkv, d]
+    v: torch.Tensor  # [B, max_len, Hkv, d]
+    lengths: torch.Tensor  # [B] int32: tokens cached per batch slot
+
+
+def attention_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    dev = gen.device
+    p = {
+        "wq": dense_init(gen, d, cfg.num_heads * hd, dtype),
+        "wk": dense_init(gen, d, cfg.num_kv_heads * hd, dtype),
+        "wv": dense_init(gen, d, cfg.num_kv_heads * hd, dtype),
+        "wo": dense_init(gen, cfg.num_heads * hd, d, dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((cfg.num_heads * hd,), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((cfg.num_kv_heads * hd,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((cfg.num_kv_heads * hd,), dtype=dtype, device=dev)
+    if cfg.qk_norm:  # qwen3-style per-head q/k RMSNorm
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
+    return p
+
+
+def _project_qkv(x, params, cfg: ModelConfig, positions):
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    quant = get_quant(cfg)
+    q = quant.dot(x, params["wq"], "attention")
+    k = quant.dot(x, params["wk"], "attention")
+    v = quant.dot(x, params["wv"], "attention")
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(b, s, cfg.num_heads, hd)
+    k = k.reshape(b, s, cfg.num_kv_heads, hd)
+    v = v.reshape(b, s, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    if cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _impl_attention(q, k, v, cfg: ModelConfig, q_offset: int = 0) -> torch.Tensor:
+    """Dispatch full-sequence attention to the configured implementation.
+
+    Shared by the full-sequence forward and the chunked prefill, so both
+    give the same numerics for the same (q, k, v).
+    """
+    if cfg.attention_impl == "naive":
+        return naive_attention(q, k, v, causal=cfg.causal, q_offset=q_offset)
+    if cfg.attention_impl in ("systolic", "pallas"):
+        return flash_attention(
+            q, k, v, cfg.causal, None, q_offset,
+            cfg.attn_block_q, cfg.attn_block_k, cfg.exp2_impl, 8,
+        )
+    raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+
+
+def attention_forward(
+    x: torch.Tensor,  # [B, S, d_model]
+    params: dict,
+    cfg: ModelConfig,
+    positions: torch.Tensor,  # [B, S] (or [B, S, 3] for M-RoPE)
+) -> torch.Tensor:
+    """Full-sequence attention (training / prefill)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(x, params, cfg, positions)
+    o = _impl_attention(q, k, v, cfg)
+    o = o.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+    return get_quant(cfg).dot(o, params["wo"], "attention")
+
+
+def prefill_attention(
+    x: torch.Tensor,  # [B, C, d_model] — one prefill chunk
+    params: dict,
+    cfg: ModelConfig,
+    cache: KVCache,  # seq capacity >= start + C; updated in place
+    positions: torch.Tensor,  # [B, C] (or [B, C, 3]) absolute positions
+    start: int,  # chunk offset: tokens [0, start) are already cached
+) -> tuple[torch.Tensor, KVCache]:
+    """Chunked flash prefill: write the chunk's K/V into the cache and attend
+    the chunk's queries over everything cached so far, with causality
+    against the earlier chunks from ``q_offset=start``.  ``cache.lengths``
+    is left for the caller to set once the whole prompt is in."""
+    b, c, _ = x.shape
+    capacity = cache.k.shape[1]
+    # The reference's dynamic_update_slice would clamp the start and
+    # overwrite earlier rows; no caller asks for that, so refuse it.
+    if start < 0 or start + c > capacity:
+        raise ValueError(f"chunk [{start}, {start + c}) exceeds cache capacity {capacity}")
+    q, k_new, v_new = _project_qkv(x, params, cfg, positions)
+    cache.k[:, start:start + c] = k_new
+    cache.v[:, start:start + c] = v_new
+    o = _impl_attention(
+        q, cache.k[:, :start + c], cache.v[:, :start + c], cfg, q_offset=start
+    )
+    o = o.reshape(b, c, cfg.num_heads * cfg.resolved_head_dim)
+    return get_quant(cfg).dot(o, params["wo"], "attention"), cache
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> KVCache:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    get_quant(cfg)  # raises for an int8 policy (its cache is not ported)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def decode_attention(
+    x: torch.Tensor,  # [B, 1, d_model]
+    params: dict,
+    cfg: ModelConfig,
+    cache: KVCache,  # updated in place
+    positions: torch.Tensor,  # [B, 1] (or [B, 1, 3])
+) -> tuple[torch.Tensor, KVCache]:
+    """Single-token decode against the KV cache (paper §8.3: never FSA).
+
+    Slot i's new K/V goes to row ``lengths[i]``, so slots at different
+    depths share one step.  A slot whose length has reached capacity writes
+    nothing, like the reference's ``mode="drop"`` scatter.
+    """
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    max_len = cache.k.shape[1]
+    q, k_new, v_new = _project_qkv(x, params, cfg, positions)
+
+    # Masked scatter without a host sync: full slots rewrite the row they
+    # already hold at max_len - 1.
+    slot = torch.arange(b, device=x.device)
+    full = (cache.lengths >= max_len)[:, None, None]
+    row = cache.lengths.clamp(max=max_len - 1).long()
+    cache.k[slot, row] = torch.where(full, cache.k[slot, row], k_new[:, 0].to(cache.k.dtype))
+    cache.v[slot, row] = torch.where(full, cache.v[slot, row], v_new[:, 0].to(cache.v.dtype))
+
+    # GQA via a grouped product over [B, 1, Hkv, rep, d]: K/V are never
+    # repeated rep times.
+    rep = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(b, 1, cfg.num_kv_heads, rep, hd).float()
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))  # fp32, as the reference
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qg, cache.k.float()) * scale
+    # Mask positions beyond each slot's (updated) cache length.
+    valid = (
+        torch.arange(max_len, device=x.device)[None, None, None, None, :]
+        <= cache.lengths[:, None, None, None, None]
+    )
+    s = torch.where(valid, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhrqk,bkhd->bqhrd", p, cache.v.float()).to(x.dtype)
+    o = o.reshape(b, 1, cfg.num_heads * hd)
+    new_cache = cache._replace(lengths=cache.lengths + 1)
+    return get_quant(cfg).dot(o, params["wo"], "attention"), new_cache

@@ -1,0 +1,261 @@
+"""Model assembly: init / forward / prefill / decode (counterpart of
+``repro.models.model``), for the dense and vlm families.
+
+Params are plain nested dicts with the reference's keys; layer params are
+stacked along a leading ``[L, ...]`` axis, and the layer ``scan`` becomes a
+Python loop over layer slices.  The caches are stacked the same way
+(``KVCache`` leaves ``[L, B, ...]``, ``lengths [L, B]``) and updated in place
+by prefill and decode.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.quant import get_quant
+from .attention import (
+    KVCache,
+    attention_forward,
+    attention_params,
+    decode_attention,
+    init_kv_cache,
+    prefill_attention,
+)
+from .layers import apply_norm, embed_init, mlp_forward, mlp_params, norm_params
+
+_FAMILIES = ("dense", "vlm")
+_LATER = {
+    "moe": "ROADMAP queue 1, MoE",
+    "hybrid": "ROADMAP queue 1, recurrent families",
+    "ssm": "ROADMAP queue 1, recurrent families",
+    "encoder": "ROADMAP queue 1, training (the encoder forward comes with lm_loss)",
+}
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: {_LATER.get(cfg.family, cfg.family)}"
+        )
+
+
+def _layer(stacked: Any, i: int) -> Any:
+    """Slice ``i`` of every leaf of a stacked params dict (None stays None)."""
+    if isinstance(stacked, dict):
+        return {name: _layer(leaf, i) for name, leaf in stacked.items()}
+    return None if stacked is None else stacked[i]
+
+
+def _stack(layers: list) -> Any:
+    """Inverse of ``_layer``: stack per-layer dicts along a new axis 0."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {name: _stack([p[name] for p in layers]) for name in first}
+    return None if first is None else torch.stack(layers)
+
+
+def _kv(cache: KVCache, i: int) -> KVCache:
+    return KVCache(k=cache.k[i], v=cache.v[i], lengths=cache.lengths[i])
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _transformer_layer_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    dev = gen.device
+    return {
+        "attn_norm": norm_params(cfg.d_model, cfg.norm_type, dtype, dev),
+        "attn": attention_params(gen, cfg, dtype),
+        "mlp_norm": norm_params(cfg.d_model, cfg.norm_type, dtype, dev),
+        "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype),
+    }
+
+
+def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
+    """Random weights from a seeded ``torch.Generator`` on ``device``."""
+    _check_family(cfg)
+    dtype = cfg.activation_dtype
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params: dict[str, Any] = {}
+    params["embed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)
+    params["final_norm"] = norm_params(cfg.d_model, cfg.norm_type, dtype, gen.device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).T.contiguous()
+    params["layers"] = _stack(
+        [_transformer_layer_params(gen, cfg, dtype) for _ in range(cfg.num_layers)]
+    )
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _default_positions(cfg: ModelConfig, batch: int, seq: int, device, offset: int = 0):
+    pos = offset + torch.arange(seq, dtype=torch.int32, device=device)[None, :]
+    pos = pos.expand(batch, seq)
+    if cfg.mrope_sections is not None:
+        pos = pos[..., None].expand(batch, seq, 3)
+    return pos
+
+
+def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(x, params: dict, cfg: ModelConfig, softcap: bool = True) -> torch.Tensor:
+    x = apply_norm(x, params["final_norm"], cfg.norm_type)
+    logits = x @ _head(params, cfg)
+    if softcap and cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+def _mlp(h, layer, cfg: ModelConfig):
+    hn = apply_norm(h, layer["mlp_norm"], cfg.norm_type)
+    return h + mlp_forward(hn, layer["mlp"], cfg.mlp_type, get_quant(cfg))
+
+
+def _transformer_block(x, layer, cfg: ModelConfig, positions, kv=None, start=0):
+    """One transformer block.  With ``kv`` (one layer's KVCache) attention
+    runs the chunked-prefill path, writing K/V at [start, start+S), and the
+    cache is returned beside the activations."""
+    h = apply_norm(x, layer["attn_norm"], cfg.norm_type)
+    if kv is None:
+        a = attention_forward(h, layer["attn"], cfg, positions)
+    else:
+        a, kv = prefill_attention(h, layer["attn"], cfg, kv, positions, start)
+    out = _mlp(x + a, layer, cfg)
+    return out if kv is None else (out, kv)
+
+
+def forward(
+    params: dict,
+    cfg: ModelConfig,
+    *,
+    tokens: Optional[torch.Tensor] = None,  # [B, S] int
+    embeds: Optional[torch.Tensor] = None,  # [B, S, d] (frontend-stub archs)
+    positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full-sequence forward -> logits [B, S, V]."""
+    _check_family(cfg)
+    x = embeds.to(cfg.activation_dtype) if embeds is not None else params["embed"][tokens]
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = _default_positions(cfg, b, s, x.device)
+    for i in range(cfg.num_layers):
+        x = _transformer_block(x, _layer(params["layers"], i), cfg, positions)
+    return _logits(x, params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# decode (single new token against caches)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> KVCache:
+    """Stacked per-layer KV cache: leaves [L, B, max_len, Hkv, d], lengths [L, B]."""
+    _check_family(cfg)
+    one = init_kv_cache(cfg, batch, max_len, cfg.activation_dtype, device)
+    L = cfg.num_layers
+    return KVCache(
+        k=one.k.new_zeros((L, *one.k.shape)),
+        v=one.v.new_zeros((L, *one.v.shape)),
+        lengths=one.lengths.new_zeros((L, batch)),
+    )
+
+
+def decode_step(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, 1] int
+    cache: KVCache,
+    position,  # int or [B] int: absolute position per slot
+) -> tuple[torch.Tensor, KVCache]:
+    """One decode step -> (logits [B, 1, V], cache).  K/V are written into
+    ``cache`` in place; the returned cache carries the advanced lengths."""
+    _check_family(cfg)
+    x = params["embed"][tokens]
+    b = x.shape[0]
+    pos = torch.as_tensor(position, dtype=torch.int32, device=x.device)
+    pos = pos.reshape(-1, 1).expand(b, 1)
+    if cfg.mrope_sections is not None:
+        pos = pos[..., None].expand(b, 1, 3)
+
+    lengths = []
+    for i in range(cfg.num_layers):
+        layer = _layer(params["layers"], i)
+        hn = apply_norm(x, layer["attn_norm"], cfg.norm_type)
+        a, kv = decode_attention(hn, layer["attn"], cfg, _kv(cache, i), pos)
+        x = _mlp(x + a, layer, cfg)
+        lengths.append(kv.lengths)
+    # No logit softcap, as in the reference's decode_step.
+    return _logits(x, params, cfg, softcap=False), cache._replace(lengths=torch.stack(lengths))
+
+
+# ---------------------------------------------------------------------------
+# prefill (whole prompt into the cache) + slot insert
+# ---------------------------------------------------------------------------
+
+
+def _prefill_chunk(params: dict, cfg: ModelConfig, tokens_c, cache: KVCache, start: int):
+    """One prefill chunk through the stack: each layer writes its K/V into
+    the cache and flash-attends over [0, start+C)."""
+    x = params["embed"][tokens_c]
+    b, c = tokens_c.shape
+    positions = _default_positions(cfg, b, c, x.device, offset=start)
+    for i in range(cfg.num_layers):
+        x, _ = _transformer_block(
+            x, _layer(params["layers"], i), cfg, positions, kv=_kv(cache, i), start=start
+        )
+    return _logits(x, params, cfg)
+
+
+def prefill_step(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, S] int, right-padded to the bucket length
+    cache: KVCache,  # from ``init_cache(cfg, B, S')`` with S' >= S
+    lengths,  # [B] int: true prompt length per row
+    *,
+    chunk_size: Optional[int] = None,
+) -> tuple[torch.Tensor, KVCache]:
+    """Prefill a (padded) prompt batch into ``cache`` -> (logits [B,S,V], cache).
+
+    ``flash_attention`` runs once per chunk of ``chunk_size`` tokens per layer
+    (default: the whole prompt in one chunk); K/V go straight into the cache.
+    """
+    _check_family(cfg)
+    b, s = tokens.shape
+    chunk = min(int(chunk_size), s) if chunk_size else s
+    logits = [
+        _prefill_chunk(params, cfg, tokens[:, start:start + chunk], cache, start)
+        for start in range(0, s, chunk)
+    ]
+    out = logits[0] if len(logits) == 1 else torch.cat(logits, dim=1)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=tokens.device).reshape(b)
+    return out, cache._replace(lengths=lengths[None, :].expand(cfg.num_layers, b).clone())
+
+
+def insert_cache(cache: KVCache, prefix: KVCache, slot: int) -> KVCache:
+    """Copy a prefilled cache (batch 1, seq capacity <= max_len) into batch
+    slot ``slot`` of a decode cache, in place.  Every leaf is [L, B, ...]."""
+    batch, max_len = cache.k.shape[1], cache.k.shape[2]
+    seq = prefix.k.shape[2]
+    # The reference's dynamic_update_slice would clamp an out-of-range slot
+    # or an over-long prefix; no caller asks for that, so refuse it.
+    if not 0 <= slot < batch or prefix.k.shape[1] != 1 or seq > max_len:
+        raise ValueError(
+            f"cannot insert a [B=1? {prefix.k.shape[1]}, S={seq}] prefix into slot "
+            f"{slot} of a [B={batch}, S={max_len}] cache"
+        )
+    cache.k[:, slot:slot + 1, :seq] = prefix.k
+    cache.v[:, slot:slot + 1, :seq] = prefix.v
+    cache.lengths[:, slot:slot + 1] = prefix.lengths
+    return cache
