@@ -2,27 +2,41 @@
 
     python3 chip_smoke.py
 
-Phases, one line of output each (any failure raises and exits non-zero):
+Phases, one or more lines of output each (any failure raises and exits
+non-zero):
 
   1. device  — a CUDA card must be present; its name and power limit
                (nvidia-smi) and the torch/CUDA versions.
-  2. build   — nvcc builds every kernel of the serving path from the
-               sources in this checkout (sm_90a).
-  3. kernels — each kernel against its plain PyTorch version on the card
-               over a sweep (fp32/bf16, causal or not, GQA, ragged S,
+  2. build   — nvcc builds every kernel (forward and backward) from the
+               sources in this checkout (sm_90a), one process per source.
+  3. kernels — the forward kernel against its plain PyTorch version on the
+               card over a sweep (fp32/bf16, causal or not, GQA, ragged S,
                q_offset > 0, exact/PWL exp2, LSE, a strided KV cache), then
-               timed at the serving path's shapes beside the plain version,
-               F.scaled_dot_product_attention (a yardstick only; the port
-               never calls it) and the card's bound.
-  4. serve   — full-width olmo-1b in bf16 with seeded random weights served
+               timed at the serving and training shapes beside the plain
+               version, F.scaled_dot_product_attention (a yardstick only;
+               the port never calls it) and the card's bound.
+  4. kernels_bwd — the dQ and dK/dV kernels against the plain FA-2 version
+               over a sweep (fp32/bf16, causal or not, GQA rep 2 and 4,
+               ragged S, q_offset > 0, an LSE from a PWL forward, d 16 to
+               128, the training shape), then timed at the training shape
+               beside the plain version, SDPA's backward and the bound.
+  5. serve   — full-width olmo-1b in bf16 with seeded random weights served
                by ServeEngine, unchunked and with prefill_chunk=512; the
                kernels' launch counts are reset before and read after, and
                must equal one launch per layer per prefill chunk.  One
                request's prefill logits are held against the naive-attention
                path on the card.
-  5. greedy  — the same model in fp32: the engine's greedy tokens must equal
+  6. greedy  — the same model in fp32: the engine's greedy tokens must equal
                sequential_greedy_decode's, or the reference's top two logits
                at the first difference must lie within 1e-3 (a near-tie).
+  7. train   — full-width olmo-1b in bf16 (remat, AdamW, cosine schedule)
+               trained by the port's Trainer for 6 steps at batch 4 x 2048
+               of SyntheticLM(seed=0); the launch counts are reset before
+               and read after (forward: layers x 2 x steps, with the remat
+               recompute; dQ and dK/dV: layers x steps); the loss must be
+               finite at every step and lower at the last than at the first.
+  8. grads   — one batch's gradients at full width and depth 2, kernel path
+               against the naive-attention path, in fp32 and in bf16.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -35,6 +49,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -44,17 +59,22 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.pwl_exp2 import LOG2_E  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd  # noqa: E402
 from repro_torch.models.model import decode_step, init_cache, init_params, prefill_step  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     Request,
     ServeEngine,
     request_latencies,
     sequential_greedy_decode,
 )
+from repro_torch.train.train_step import value_and_grad  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 PEAK_BF16_FLOPS = 989e12
@@ -140,10 +160,10 @@ def _flash_inputs(case, gen):
     return q, k, v, kw
 
 
-def _max_err(a, b, dtype):
+def _max_err(a, b, dtype, tol=TOL):
     """Largest |a - b|, and the largest share of its tolerance an element
     uses (above 1: the check fails)."""
-    atol, rtol = TOL[dtype]
+    atol, rtol = tol[dtype]
     a, b = a.float(), b.float()
     err = (a - b).abs()
     return float(err.max()), float((err / (atol + rtol * b.abs())).max())
@@ -208,32 +228,149 @@ def _attention_cost(b, s, h, d, itemsize):
     return flops, nbytes
 
 
+def _bound(flops, nbytes):
+    """The least time the card could take, in ms, and what bounds it."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def time_flash() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for s in (512, 2048):
-        b, h, d, dtype = 1, 16, 128, torch.bfloat16
+    # Serving prefill (B = 1, no LSE), then training (B = 4, LSE for the
+    # backward); the plain version is slow, so the last takes 3 timings.
+    for b, s, lse, plain_iters in ((1, 512, False, 20), (1, 2048, False, 20), (4, 2048, True, 3)):
+        h, d, dtype = 16, 128, torch.bfloat16
         q, k, v = (_randn((b, s, h, d), gen, dtype) for _ in range(3))
         kw = dict(causal=True, scale=1.0 / math.sqrt(d), q_offset=0,
-                  exp2_impl="exact", num_segments=8, return_lse=False)
+                  exp2_impl="exact", num_segments=8, return_lse=lse)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         ms = cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, **kw))
         plain_ms = cuda_ms(lambda: flash.flash_attention_fwd_plain(
-            q, k, v, block_q=TILE, block_k=TILE, **kw))
+            q, k, v, block_q=TILE, block_k=TILE, **kw), iters=plain_iters, warmup=1)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
         flops, nbytes = _attention_cost(b, s, h, d, 2)
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-        row = dict(shape=[b, s, h, d], dtype="bfloat16", causal=True,
+        nbytes += b * h * s * 4 if lse else 0
+        bound_ms, bound_by = _bound(flops, nbytes)
+        row = dict(shape=[b, s, h, d], dtype="bfloat16", causal=True, lse=lse,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=max(t_ops, t_bytes) * 1e3,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   flops=flops, bytes=nbytes)
+                   bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
         emit("kernels", timing=row)
         rows.append(row)
     return rows
 
 
-# -- phase 4: serve -------------------------------------------------------------
+# -- phase 4: backward kernels -----------------------------------------------------
+
+# Backward kernels vs the plain version on the same inputs, as (atol, rtol).
+# fp32: only the order of the fp32 sums differs, over up to Sq * rep terms
+# for dK and dV (3200 here), so a little above the forward's 3e-5.  bf16:
+# both compute in fp32 and round each gradient to bf16 once: one bf16
+# step, as the forward's TOL, with 1e-3 for values near zero.
+TOL_BWD = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-3, 2.0 ** -7)}
+
+# (B, Sq, Sk, H, Hkv, d, causal, q_offset, dtype, exp2 of the forward)
+BWD_SWEEP = [
+    (1, 128, 128, 1, 1, 64, False, 0, torch.float32, "exact"),
+    (2, 256, 256, 4, 2, 64, True, 0, torch.float32, "exact"),
+    (1, 256, 512, 4, 1, 128, True, 256, torch.float32, "exact"),
+    (1, 100, 200, 4, 4, 32, True, 100, torch.float32, "pwl"),
+    (2, 200, 700, 4, 2, 64, True, 500, torch.float32, "pwl"),
+    (2, 64, 64, 8, 2, 16, False, 0, torch.bfloat16, "exact"),
+    (1, 77, 130, 8, 4, 32, False, 0, torch.bfloat16, "exact"),
+    (1, 300, 812, 16, 16, 128, True, 512, torch.bfloat16, "exact"),
+    (1, 512, 512, 16, 16, 128, True, 0, torch.bfloat16, "pwl"),
+    (4, 2048, 2048, 16, 16, 128, True, 0, torch.bfloat16, "exact"),  # training shape
+]
+
+
+def _bwd_inputs(case, gen):
+    """q, k, v, the forward's output and LSE (from the kernel), dO."""
+    b, sq, sk, h, hkv, d, causal, q_offset, dtype, exp2 = case
+    q = _randn((b, sq, h, d), gen, dtype)
+    k, v = (_randn((b, sk, hkv, d), gen, dtype) for _ in range(2))
+    do = _randn((b, sq, h, d), gen, dtype)
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(d), q_offset=q_offset)
+    out, lse = flash.flash_attention_fwd(q, k, v, exp2_impl=exp2, num_segments=8,
+                                         return_lse=True, **kw)
+    return (q, k, v, out, lse, do), kw
+
+
+def check_bwd_sweep() -> dict:
+    """Largest |kernel - plain| of dQ, and of dK and dV, over the sweep."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for case in BWD_SWEEP:
+        args, kw = _bwd_inputs(case, gen)
+        got = flash_bwd.flash_attention_bwd(*args, **kw)
+        ref = flash_bwd.flash_attention_bwd_plain(*args, block_q=TILE, block_k=TILE, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            err, used = _max_err(g, r, case[8], TOL_BWD)
+            errs[name] = dict(max_abs_err=err, tol_used=used)
+            if not used <= 1.0 or not torch.isfinite(g.float()).all():
+                raise AssertionError(f"flash_bwd {name} vs plain mismatch ({err}, tol_used {used}) for {case}")
+        worst["dq"] = max(worst["dq"], errs["dq"]["max_abs_err"])
+        worst["dkv"] = max(worst["dkv"], errs["dk"]["max_abs_err"], errs["dv"]["max_abs_err"])
+        emit("kernels_bwd", case=str(case[:8] + (str(case[8]), case[9])),
+             tol=TOL_BWD[case[8]], **errs)
+    return worst
+
+
+def _bwd_cost(b, s, h, hkv, d, itemsize, products, q_sized, kv_sized):
+    """Operations of ``products`` d-deep products per causal pair and head;
+    bytes of ``q_sized`` [B, S, H, d] and ``kv_sized`` [B, S, Hkv, d] tensors
+    in the inputs' dtype and of LSE and delta (fp32), each read or written
+    once."""
+    pairs = s * (s + 1) // 2
+    flops = 2 * products * d * pairs * h * b
+    nbytes = (q_sized * b * s * h + kv_sized * b * s * hkv) * d * itemsize + 2 * b * h * s * 4
+    return flops, nbytes
+
+
+def time_bwd() -> dict:
+    """The backward at the training shape: each kernel alone, the whole
+    (delta + dQ + dK/dV), the plain version and SDPA's backward."""
+    case = BWD_SWEEP[-1]
+    b, s, _, h, hkv, d = case[:6]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    (q, k, v, out, lse, do), kw = _bwd_inputs(case, gen)
+    whole_ms = cuda_ms(lambda: flash_bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw))
+    plain_ms = cuda_ms(lambda: flash_bwd.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, block_q=TILE, block_k=TILE, **kw), iters=3, warmup=1)
+
+    # Each kernel alone, on the wrapper's buffers.
+    lib = flash_bwd._library()
+    delta = torch.empty((b * h, s), dtype=torch.float32, device="cuda")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    common = (flash._DTYPE_CODES[q.dtype], b, h, hkv, s, s, d)
+    c, stream = kw["scale"] * LOG2_E, torch.cuda.current_stream().cuda_stream
+    extra = (0, True, c, kw["scale"], stream)
+    dq_ms = cuda_ms(lambda: flash_bwd._launch_dq(lib, q, k, v, out, do, lse, delta, dq, common, *extra))
+    dkv_ms = cuda_ms(lambda: flash_bwd._launch_dkv(lib, q, k, v, do, lse, delta, dk, dv, common, *extra))
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    sdpa_ms = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
+
+    rows = {}
+    # dQ: S, dP, dQ from q, k, v, o, dO, LSE into dQ and delta.  dK/dV: S,
+    # dP, dV, dK from q, k, v, dO, LSE, delta.  Whole: five products (S and
+    # dP once), q, k, v, o, dO, LSE, delta in and dQ, dK, dV out.
+    work = (("dq", dq_ms, (3, 4, 2)), ("dkv", dkv_ms, (4, 2, 4)), ("whole", whole_ms, (5, 4, 4)))
+    for name, ms, (products, q_sized, kv_sized) in work:
+        flops, nbytes = _bwd_cost(b, s, h, hkv, d, 2, products, q_sized, kv_sized)
+        bound_ms, bound_by = _bound(flops, nbytes)
+        rows[name] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
+    timing = dict(shape=[b, s, h, d], dtype="bfloat16", causal=True, plain_ms=plain_ms,
+                  library_ms=sdpa_ms, **rows)
+    emit("kernels_bwd", timing=timing)
+    return timing
+
+
+# -- phase 5: serve -------------------------------------------------------------
 
 SERVE_PROMPT_LENS = (64, 1536, 200, 700, 96, 1100, 400, 1400)
 MAX_NEW = 16
@@ -312,7 +449,7 @@ def serve(cfg, params) -> dict:
     return dict(runs=runs, launches=launches)
 
 
-# -- phase 5: greedy equivalence in fp32 ------------------------------------------
+# -- phase 6: greedy equivalence in fp32 ------------------------------------------
 
 GREEDY_PROMPT_LENS = (37, 130, 256)
 
@@ -351,6 +488,88 @@ def greedy(cfg) -> dict:
     return dict(near_ties=near_ties)
 
 
+# -- phase 7: train --------------------------------------------------------------
+
+TRAIN_SHAPE = ShapeConfig("chip_smoke", 2048, 4, "train")  # seq 2048, batch 4
+TRAIN_STEPS = 6
+# The reference's peak lr, 3e-4, reached after 2 warm-up steps (not its
+# default 10): the params are bf16 with no fp32 master copy, so an update
+# much below half a bf16 step of a weight (~6e-5 at the init's ~0.02)
+# rounds away.  A peak of 1e-3 made the loss climb from 10.1 to 16.2 at
+# full width before it fell again.
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+
+
+def train(cfg) -> dict:
+    """The port's Trainer on full-width olmo-1b; launch counts of the run."""
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1, ckpt_dir=ckpt_dir,
+                             peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, log_every=1, seed=0)
+        trainer = Trainer(cfg, TRAIN_SHAPE, tcfg, device="cuda")
+        state = trainer.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.launch_count = flash_bwd.dq_launch_count = flash_bwd.dkv_launch_count = 0
+        state = trainer.run(state)
+        torch.cuda.synchronize()
+        launches = dict(flash_fwd=flash.launch_count, flash_bwd_dq=flash_bwd.dq_launch_count,
+                        flash_bwd_dkv=flash_bwd.dkv_launch_count)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = state["losses"]
+    steps = list(trainer.watchdog.durations)
+    tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
+    step_s = float(np.median(steps[1:]))  # the first step also warms up
+    expected = dict(flash_fwd=cfg.num_layers * 2 * TRAIN_STEPS,
+                    flash_bwd_dq=cfg.num_layers * TRAIN_STEPS,
+                    flash_bwd_dkv=cfg.num_layers * TRAIN_STEPS)
+    emit("train", arch=cfg.name, dtype=cfg.dtype, remat=cfg.remat, batch=TRAIN_SHAPE.global_batch,
+         seq=TRAIN_SHAPE.seq_len, losses=losses, step_seconds=steps, step_s_median=step_s,
+         tokens_per_s=tokens / step_s, max_memory_allocated_gb=peak_gb,
+         launches=launches, expected_launches=expected)
+    if launches != expected:
+        raise AssertionError(f"training launched {launches}, expected {expected}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses not finite at every step: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    return dict(launches=launches, step_s=step_s, tokens_per_s=tokens / step_s, losses=losses)
+
+
+# -- phase 8: gradients, kernel path vs naive path ---------------------------------
+
+GRADS_DEPTH, GRADS_BATCH, GRADS_SEQ = 2, 2, 1024
+# Each leaf's max |kernel - naive| over its max |naive|.  fp32: the two paths
+# round attention differently (~1e-6 of the largest gradient when this
+# comparison runs on the CPU at depth 1); 1e-4 leaves two orders for the
+# sums of a card.  bf16: activations and gradients round to bf16 at every
+# layer, and the naive path's gradients of q, k, v are rounded from other
+# fp32 values than the kernel's (~8e-3 on the CPU at depth 1); 5e-2 is ~6
+# bf16 steps (2**-7) of the largest gradient.
+TOL_GRADS = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def grads(cfg) -> dict:
+    worst = {}
+    for dtype, tol in TOL_GRADS.items():
+        small = dataclasses.replace(cfg, num_layers=GRADS_DEPTH, dtype=dtype)
+        params = init_params(small, seed=2, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        toks = torch.randint(0, small.vocab_size, (GRADS_BATCH, GRADS_SEQ + 1), generator=gen, device="cuda")
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        loss, got = value_and_grad(small, params, batch)
+        ref_loss, ref = value_and_grad(dataclasses.replace(small, attention_impl="naive"), params, batch)
+        rel = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                  for a, b in zip(tree_leaves(got), tree_leaves(ref)))
+        emit("grads", dtype=dtype, depth=GRADS_DEPTH, batch=GRADS_BATCH, seq=GRADS_SEQ,
+             loss=float(loss), naive_loss=float(ref_loss), max_rel_err=rel, tol=tol)
+        if not rel <= tol or not math.isfinite(float(loss)):
+            raise AssertionError(f"{dtype} gradients differ from the naive path: {rel} > {tol}")
+        worst[dtype] = rel
+        del params, got, ref
+        torch.cuda.empty_cache()
+    return worst
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -372,6 +591,8 @@ def main() -> None:
     sweep_err = check_flash_sweep()
     check_pwl_subnormal_range()
     timing = time_flash()
+    bwd_err = check_bwd_sweep()
+    bwd_timing = time_bwd()
 
     cfg = get_config("olmo-1b")
     params = init_params(cfg, seed=0, device="cuda")
@@ -379,19 +600,38 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
     greedy(dataclasses.replace(cfg, dtype="float32"))
+    torch.cuda.empty_cache()
+    trained = train(cfg)
+    torch.cuda.empty_cache()
+    grads(cfg)
 
-    main_shape = timing[-1]
-    record = dict(
+    serve_shape = next(r for r in timing if r["shape"] == [1, 2048, 16, 128])
+    fwd_launches = dict(serve=served["launches"], train=trained["launches"]["flash_fwd"])
+    records = [dict(
         name="flash_fwd", route="cuda", source="src/repro_torch/kernels/csrc/flash_fwd.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:64",
-        launches=served["launches"], max_abs_err=sweep_err,
+        launches=sum(fwd_launches.values()), launches_by_path=fwd_launches, max_abs_err=sweep_err,
         tol={"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16]},
-        ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
-        bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
-        library_ms=main_shape["library_ms"], shape=main_shape["shape"], by_shape=timing,
-    )
+        ms=serve_shape["ms"], plain_ms=serve_shape["plain_ms"],
+        bound_ms=serve_shape["bound_ms"], bound_by=serve_shape["bound_by"],
+        library_ms=serve_shape["library_ms"], shape=serve_shape["shape"], by_shape=timing,
+    )]
+    # Each backward kernel is timed alone; the plain version and SDPA's
+    # backward compute dQ, dK and dV together, so theirs are the whole's.
+    for name, key, line in (("flash_bwd_dq", "dq", 48), ("flash_bwd_dkv", "dkv", 81)):
+        row = bwd_timing[key]
+        records.append(dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/flash_bwd.cu",
+            replaces=f"src/repro/kernels/flash_attention/kernel_bwd.py:{line}",
+            launches=trained["launches"][name], launches_by_path=dict(train=trained["launches"][name]),
+            max_abs_err=bwd_err[key],
+            tol={"float32": TOL_BWD[torch.float32], "bfloat16": TOL_BWD[torch.bfloat16]},
+            ms=row["ms"], plain_ms=bwd_timing["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=bwd_timing["library_ms"],
+            shape=bwd_timing["shape"], whole_backward=bwd_timing["whole"],
+        ))
     print(nvidia_smi(), flush=True)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

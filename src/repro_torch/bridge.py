@@ -4,7 +4,8 @@
 layer leaves; after ``jax.tree.map(np.asarray, params)`` (done by the
 caller, so that this module needs no JAX) every leaf is a numpy array, and
 ``params_from_jax`` maps it to a tensor on ``device``.  ``None`` leaves
-(non-parametric norms) stay ``None``.
+(non-parametric norms) stay ``None``.  ``to_numpy`` goes the other way for
+comparisons, a bf16 tensor as fp32 (exactly).
 """
 
 from __future__ import annotations
@@ -28,3 +29,8 @@ def params_from_jax(params_np: Any, device="cuda") -> Any:
     if isinstance(params_np, dict):
         return {name: params_from_jax(leaf, device) for name, leaf in params_np.items()}
     return _tensor(np.asarray(params_np), device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -23,7 +23,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_fwd",)
+SOURCES = ("flash_fwd", "flash_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -66,31 +66,45 @@ def library_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-
-    The compiler's output (ptxas's register and spill report) is kept
-    beside the library as ``.log``.
-    """
+def _start(name: str):
+    """Start ``nvcc`` on ``csrc/<name>.cu`` unless its library is built:
+    ``(process, temporary output)``, or None."""
     out = library_path(name)
     if out.exists():
-        return out
+        return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    return proc, tmp
+
+
+def _finish(name: str, started) -> Path:
+    """Wait for a build from ``_start``; keep the compiler's output (ptxas's
+    register and spill report) beside the library as ``.log``."""
+    out = library_path(name)
+    if started is None:
+        return out
+    proc, tmp = started
+    stdout, stderr = proc.communicate()
+    out.with_suffix(".log").write_text(stdout + stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out
 
 
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    return _finish(name, _start(name))
+
+
 def build_all() -> dict[str, Path]:
-    """Build every kernel source."""
-    return {name: build(name) for name in SOURCES}
+    """Build every kernel source, one ``nvcc`` per source, all at once."""
+    started = {name: _start(name) for name in SOURCES}
+    return {name: _finish(name, proc) for name, proc in started.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -112,14 +112,19 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_layout(name: str, t: torch.Tensor) -> None:
+def is_dense(t: torch.Tensor) -> bool:
+    """Whether a ``[B, S, H, d]`` tensor has dense ``[S, H, d]`` inner dims
+    (any batch stride), the layout the kernels take."""
     _, seq, heads, d = t.shape
-    dense = (
+    return (
         t.stride(3) == 1
         and (heads == 1 or t.stride(2) == d)
         and (seq == 1 or t.stride(1) == heads * d)
     )
-    if not dense:
+
+
+def _check_layout(name: str, t: torch.Tensor) -> None:
+    if not is_dense(t):
         raise ValueError(
             f"{name} needs dense [S, H, d] inner dims (any batch stride); "
             f"got strides {t.stride()} for shape {tuple(t.shape)}"

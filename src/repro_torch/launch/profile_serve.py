@@ -14,7 +14,8 @@ ended by a synchronize) and one ``torch.profiler`` trace of it:
 
 Each phase prints one JSON line: wall ms, device (kernel) ms from the
 trace, the device's busy share of the wall time, and the kernels that
-take the most device time.  Needs the card.
+take the most device time.  Needs the card.  ``launch/profile_train.py``
+reports a training step with the same helpers.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ BUCKET, PROMPT_LEN = 2048, 1536  # the serve phase's longest prompt, its bucket
 BATCH, MAX_LEN, DEPTH = 4, 2048, 1024  # its engine's slots and cache, half full
 STEPS = 10  # decode steps per timed call
 REPEATS = 5
-TOP = 8  # kernels listed per phase
+TOP = 12  # kernels listed per phase
 
 
 def _wall_ms(fn) -> float:
@@ -50,7 +51,8 @@ def _wall_ms(fn) -> float:
 
 
 def _kernels(fn) -> tuple[float, list[dict]]:
-    """Device ms of one traced call of ``fn`` and its ``TOP`` kernels."""
+    """Device ms of one traced call of ``fn`` and all its kernels, the one
+    that takes the most device time first."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -62,24 +64,30 @@ def _kernels(fn) -> tuple[float, list[dict]]:
     total = sum(ms for _, ms, _ in rows)
     rows.sort(key=lambda r: -r[1])
     return total, [
-        {"kernel": name[:90], "ms": ms, "share": ms / total if total else 0.0, "calls": n}
-        for name, ms, n in rows[:TOP]
+        {"kernel": name, "ms": ms, "share": ms / total if total else 0.0, "calls": n}
+        for name, ms, n in rows
     ]
 
 
-def _report(phase: str, fn, calls: int, **extra) -> None:
+def report(phase: str, fn, calls: int, groups=None, **extra) -> None:
     """One JSON line for ``fn``, which makes ``calls`` calls of the phase;
-    times are per call."""
-    wall_ms = _wall_ms(fn) / calls
-    device_ms, kernels = _kernels(fn)
+    times are per call.  ``groups`` maps a label to a substring of kernel
+    names; the line gives each group's share of the device time."""
+    wall = _wall_ms(fn) / calls
+    device_ms, rows = _kernels(fn)
     device_ms /= calls
-    for k in kernels:
-        k["ms"] /= calls
-        k["calls"] //= calls
+    shares = {
+        label: sum(r["share"] for r in rows if part in r["kernel"])
+        for label, part in (groups or {}).items()
+    }
+    top_rows = [
+        {**r, "kernel": r["kernel"][:90], "ms": r["ms"] / calls, "calls": r["calls"] // calls}
+        for r in rows[:TOP]
+    ]
     print(json.dumps({
-        "phase": phase, **extra, "wall_ms_per_call": wall_ms,
-        "device_ms_per_call": device_ms, "device_busy_share": device_ms / wall_ms,
-        "top_kernels": kernels,
+        "phase": phase, **extra, "wall_ms_per_call": wall,
+        "device_ms_per_call": device_ms, "device_busy_share": device_ms / wall,
+        **({"group_shares": shares} if groups else {}), "top_kernels": top_rows,
     }), flush=True)
 
 
@@ -100,7 +108,7 @@ def main() -> None:
         cache = init_cache(cfg, 1, BUCKET, "cuda")
         prefill_step(params, cfg, tokens, cache, [PROMPT_LEN])
 
-    _report("prefill", prefill, 1, bucket=BUCKET, prompt_len=PROMPT_LEN)
+    report("prefill", prefill, 1, bucket=BUCKET, prompt_len=PROMPT_LEN)
 
     cache = init_cache(cfg, BATCH, MAX_LEN, "cuda")
     cache = cache._replace(lengths=torch.full_like(cache.lengths, DEPTH))
@@ -112,7 +120,7 @@ def main() -> None:
         for _ in range(STEPS):
             decode_step(params, cfg, step_tokens, cache, positions)
 
-    _report("decode", decode, STEPS, batch=BATCH, depth=DEPTH, max_len=MAX_LEN)
+    report("decode", decode, STEPS, batch=BATCH, depth=DEPTH, max_len=MAX_LEN)
 
 
 if __name__ == "__main__":

@@ -4,5 +4,6 @@ from .model import (  # noqa: F401
     init_cache,
     init_params,
     insert_cache,
+    lm_loss,
     prefill_step,
 )

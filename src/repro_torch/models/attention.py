@@ -4,8 +4,10 @@
 ``cfg.attention_impl`` selects
 
   * ``systolic`` or ``pallas`` — ``flash_attention``: the hand-written CUDA
-    kernel for tensors on the card, its plain tiled Algorithm 1 for tensors
-    on the CPU (both compute the reference's ``systolic`` and ``pallas``);
+    kernels for tensors on the card, their plain versions for tensors on
+    the CPU (the forward computes the reference's ``systolic`` and
+    ``pallas``; the gradient is its ``pallas`` one, exact-exp2 FA-2, for
+    both: ROADMAP queue 3, departure (a));
   * ``naive`` — materialised softmax (the oracle).
 
 Per the paper §8.3, decode (one query token, memory-bound) never uses the

@@ -1,11 +1,13 @@
-"""Model assembly: init / forward / prefill / decode (counterpart of
-``repro.models.model``), for the dense and vlm families.
+"""Model assembly: init / forward / loss / prefill / decode (counterpart of
+``repro.models.model``), for the dense and vlm families, and the encoder
+family in ``forward`` and ``lm_loss`` (it has no cache).
 
 Params are plain nested dicts with the reference's keys; layer params are
 stacked along a leading ``[L, ...]`` axis, and the layer ``scan`` becomes a
-Python loop over layer slices.  The caches are stacked the same way
-(``KVCache`` leaves ``[L, B, ...]``, ``lengths [L, B]``) and updated in place
-by prefill and decode.
+Python loop over layer slices (with ``cfg.remat``, each layer is a
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).  The
+caches are stacked the same way (``KVCache`` leaves ``[L, B, ...]``,
+``lengths [L, B]``) and updated in place by prefill and decode.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.quant import get_quant
@@ -26,31 +29,37 @@ from .attention import (
 )
 from .layers import apply_norm, embed_init, mlp_forward, mlp_params, norm_params
 
-_FAMILIES = ("dense", "vlm")
+_FAMILIES = ("dense", "vlm")  # every path, caches included
+_FORWARD_FAMILIES = _FAMILIES + ("encoder",)  # init, forward, lm_loss
 _LATER = {
     "moe": "ROADMAP queue 1, MoE",
     "hybrid": "ROADMAP queue 1, recurrent families",
     "ssm": "ROADMAP queue 1, recurrent families",
-    "encoder": "ROADMAP queue 1, training (the encoder forward comes with lm_loss)",
 }
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _FAMILIES:
+def _check_family(cfg: ModelConfig, families=_FAMILIES) -> None:
+    if cfg.family == "encoder" and cfg.family not in families:
+        raise ValueError("encoder archs have no decode cache")
+    if cfg.family not in families:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: {_LATER.get(cfg.family, cfg.family)}"
         )
 
 
-def _layer(stacked: Any, i: int) -> Any:
-    """Slice ``i`` of every leaf of a stacked params dict (None stays None)."""
+def _unstack(stacked: Any, n: int) -> list:
+    """The ``n`` per-layer dicts (views) of a stacked params dict, by
+    ``unbind``: its gradient is one stack of the layers' gradients, where
+    indexing each layer would add a zero-filled ``[L, ...]`` buffer per
+    layer.  ``None`` leaves stay ``None``."""
     if isinstance(stacked, dict):
-        return {name: _layer(leaf, i) for name, leaf in stacked.items()}
-    return None if stacked is None else stacked[i]
+        per_leaf = {name: _unstack(leaf, n) for name, leaf in stacked.items()}
+        return [{name: leaves[i] for name, leaves in per_leaf.items()} for i in range(n)]
+    return [None] * n if stacked is None else list(torch.unbind(stacked))
 
 
 def _stack(layers: list) -> Any:
-    """Inverse of ``_layer``: stack per-layer dicts along a new axis 0."""
+    """Inverse of ``_unstack``: stack per-layer dicts along a new axis 0."""
     first = layers[0]
     if isinstance(first, dict):
         return {name: _stack([p[name] for p in layers]) for name in first}
@@ -78,7 +87,7 @@ def _transformer_layer_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> 
 
 def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     """Random weights from a seeded ``torch.Generator`` on ``device``."""
-    _check_family(cfg)
+    _check_family(cfg, _FORWARD_FAMILIES)
     dtype = cfg.activation_dtype
     gen = torch.Generator(device=device).manual_seed(seed)
     params: dict[str, Any] = {}
@@ -144,14 +153,34 @@ def forward(
     positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Full-sequence forward -> logits [B, S, V]."""
-    _check_family(cfg)
+    _check_family(cfg, _FORWARD_FAMILIES)
     x = embeds.to(cfg.activation_dtype) if embeds is not None else params["embed"][tokens]
     b, s = x.shape[:2]
     if positions is None:
         positions = _default_positions(cfg, b, s, x.device)
-    for i in range(cfg.num_layers):
-        x = _transformer_block(x, _layer(params["layers"], i), cfg, positions)
+    for layer in _unstack(params["layers"], cfg.num_layers):
+        if cfg.remat and torch.is_grad_enabled():
+            # Keep only the layer's input; recompute the rest in the backward.
+            x = torch.utils.checkpoint.checkpoint(
+                _transformer_block, x, layer, cfg, positions, use_reentrant=False
+            )
+        else:
+            x = _transformer_block(x, layer, cfg, positions)
     return _logits(x, params, cfg)
+
+
+def lm_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Next-token (or frame-label) cross entropy in fp32; labels < 0 are
+    masked out of the mean."""
+    logits = forward(
+        params, cfg,
+        tokens=batch.get("tokens"), embeds=batch.get("embeds"), positions=batch.get("positions"),
+    )
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    mask = (labels >= 0).float()
+    nll = -torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -189,8 +218,7 @@ def decode_step(
         pos = pos[..., None].expand(b, 1, 3)
 
     lengths = []
-    for i in range(cfg.num_layers):
-        layer = _layer(params["layers"], i)
+    for i, layer in enumerate(_unstack(params["layers"], cfg.num_layers)):
         hn = apply_norm(x, layer["attn_norm"], cfg.norm_type)
         a, kv = decode_attention(hn, layer["attn"], cfg, _kv(cache, i), pos)
         x = _mlp(x + a, layer, cfg)
@@ -210,10 +238,8 @@ def _prefill_chunk(params: dict, cfg: ModelConfig, tokens_c, cache: KVCache, sta
     x = params["embed"][tokens_c]
     b, c = tokens_c.shape
     positions = _default_positions(cfg, b, c, x.device, offset=start)
-    for i in range(cfg.num_layers):
-        x, _ = _transformer_block(
-            x, _layer(params["layers"], i), cfg, positions, kv=_kv(cache, i), start=start
-        )
+    for i, layer in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        x, _ = _transformer_block(x, layer, cfg, positions, kv=_kv(cache, i), start=start)
     return _logits(x, params, cfg)
 
 

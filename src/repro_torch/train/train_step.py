@@ -1,0 +1,82 @@
+"""Training step factory (counterpart of ``repro.train.train_step``): loss
+and gradients by ``torch.autograd.grad`` over the param leaves, then the
+optimizer, with optional microbatch gradient accumulation.
+
+``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
+returns new params and state and leaves its inputs as they were.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import lm_loss
+from repro_torch.optim.adamw import tree_leaves, tree_map
+
+
+def _with_leaves(params: Any, leaves: list) -> Any:
+    """``params`` with its tensor leaves replaced, in ``tree_leaves`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), params)
+
+
+def value_and_grad(cfg: ModelConfig, params: Any, batch: dict) -> tuple[torch.Tensor, Any]:
+    """``lm_loss`` and its gradient, a dict shaped like ``params`` whose
+    leaves are in the params' dtypes."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = lm_loss(_with_leaves(params, leaves), cfg, batch)
+        # A leaf the loss does not use (the token embedding of an arch fed
+        # frame embeddings) gets zeros, as jax.grad gives it.
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    return loss.detach(), _with_leaves(params, list(grads))
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    optimizer,
+    *,
+    num_microbatches: int = 1,
+    compress_grads: bool = False,
+):
+    """Returns ``train_step(params, opt_state, batch)``.  With microbatches
+    the batch is split along dim 0, the gradients are summed in fp32 and
+    averaged (so the optimizer sees fp32 gradients, as in the reference)."""
+    if compress_grads:
+        raise NotImplementedError(
+            "int8-compressed gradient reduction is not ported yet (ROADMAP queue 1 item 4, int8)"
+        )
+
+    def compute_grads(params, batch):
+        if num_microbatches == 1:
+            return value_and_grad(cfg, params, batch)
+        if any(v.shape[0] % num_microbatches for v in batch.values()):
+            raise ValueError(f"batch does not split into {num_microbatches} microbatches")
+        micro = {k: torch.chunk(v, num_microbatches, dim=0) for k, v in batch.items()}
+        loss_sum = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+        for i in range(num_microbatches):
+            loss, g = value_and_grad(cfg, params, {k: parts[i] for k, parts in micro.items()})
+            loss_sum = loss_sum + loss
+            grads = tree_map(torch.add, grads, g)
+        inv = 1.0 / num_microbatches
+        return loss_sum * inv, tree_map(lambda g: g * inv, grads)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = compute_grads(params, batch)
+        new_params, new_opt = optimizer.update(grads, opt_state, params)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+        return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig):
+    @torch.no_grad()
+    def eval_step(params, batch):
+        return lm_loss(params, cfg, batch)
+
+    return eval_step

@@ -1,0 +1,128 @@
+"""Training loop with checkpoint/restart, preemption handling, straggler
+watchdog, async checkpointing and deterministic data (counterpart of
+``repro.train.trainer``), on one device.
+
+Each step lands in the trainer's metrics registry
+(``train_steps_total``/``train_tokens_total`` counters,
+``train_step_seconds`` histogram, loss/grad-norm/tokens-per-s gauges).
+Not yet ported: the mesh, the reference's per-step MFU gauge, its spans and
+its JSONL metrics stream (ROADMAP queue 1 items 7 and 8), and the
+int8-compressed gradients (item 4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.data import DataConfig, make_source
+from repro_torch.dist.fault import PreemptionHandler, StepWatchdog
+from repro_torch.models import init_params
+from repro_torch.obs import Registry
+from repro_torch.optim import make_optimizer
+from repro_torch.optim.schedules import cosine_with_warmup
+from .train_step import make_train_step
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    ckpt_every: int = 20
+    ckpt_dir: str = "build/repro_torch_ckpt"  # relative: git-ignored at the repo root
+    keep: int = 3
+    optimizer: str = "adamw"
+    peak_lr: float = 3e-4
+    warmup_steps: int = 10
+    num_microbatches: int = 1
+    log_every: int = 10
+    seed: int = 0
+    watchdog_factor: float = 10.0
+
+
+class Trainer:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        shape: ShapeConfig,
+        tcfg: TrainerConfig,
+        *,
+        token_file: Optional[str] = None,
+        hooks: Optional[dict[str, Callable]] = None,
+        registry: Optional[Registry] = None,
+        device="cuda",
+    ):
+        self.cfg, self.shape, self.tcfg = cfg, shape, tcfg
+        self.device = torch.device(device)
+        self.data = make_source(cfg, shape, DataConfig(seed=tcfg.seed), token_file)
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
+        self.registry = registry if registry is not None else Registry()
+        self.watchdog = StepWatchdog(timeout_factor=tcfg.watchdog_factor, registry=self.registry)
+        self.preempt = PreemptionHandler(install=False, registry=self.registry)
+        self.hooks = hooks or {}
+        self._steps_total = self.registry.counter("train_steps_total", "optimizer steps completed")
+        self._tokens_total = self.registry.counter("train_tokens_total", "tokens consumed")
+        self._h_step = self.registry.histogram("train_step_seconds", "wall time per optimizer step")
+        self._g_loss = self.registry.gauge("train_loss", "last step loss")
+        self._g_gnorm = self.registry.gauge("train_grad_norm", "last step gradient norm")
+        self._g_tok_s = self.registry.gauge("train_tokens_per_s", "throughput of the last step")
+
+        sched = cosine_with_warmup(tcfg.peak_lr, tcfg.warmup_steps, tcfg.total_steps)
+        self.optimizer = make_optimizer(tcfg.optimizer, lr=sched)
+        self.step_fn = make_train_step(cfg, self.optimizer, num_microbatches=tcfg.num_microbatches)
+
+    # -- state ------------------------------------------------------------
+
+    def init_state(self) -> dict:
+        params = init_params(self.cfg, self.tcfg.seed, self.device)
+        return {"params": params, "opt": self.optimizer.init(params), "step": 0}
+
+    def restore_or_init(self) -> dict:
+        latest = self.ckpt.latest_step()
+        if latest is None:
+            return self.init_state()
+        template = {k: v for k, v in self.init_state().items() if k != "step"}
+        restored = self.ckpt.restore(latest, template)
+        restored["step"] = latest
+        return restored
+
+    # -- loop --------------------------------------------------------------
+
+    def run(self, state: Optional[dict] = None) -> dict:
+        """Step ``state`` (default: the latest checkpoint, else fresh
+        params) up to ``total_steps``; returns it with ``losses``."""
+        state = state or self.restore_or_init()
+        ckpt_keys = ("params", "opt")
+        losses = []
+        tokens_per_batch = self.shape.global_batch * self.shape.seq_len
+        while state["step"] < self.tcfg.total_steps:
+            if self.preempt.requested:
+                self.ckpt.save(state["step"], {k: state[k] for k in ckpt_keys})
+                break
+            step = state["step"]
+            batch = {k: torch.as_tensor(v, device=self.device) for k, v in self.data.batch(step).items()}
+            self.watchdog.start_step()
+            params, opt, metrics = self.step_fn(state["params"], state["opt"], batch)
+            loss = metrics["loss"].item()  # waits for the step, as block_until_ready
+            dur = self.watchdog.end_step()
+            state = {"params": params, "opt": opt, "step": step + 1}
+            gnorm = metrics["grad_norm"].item()
+            losses.append(loss)
+            self._steps_total.inc()
+            self._tokens_total.inc(tokens_per_batch)
+            self._h_step.observe(dur)
+            self._g_loss.set(loss)
+            self._g_gnorm.set(gnorm)
+            self._g_tok_s.set(tokens_per_batch / dur)
+            if "on_step" in self.hooks:
+                self.hooks["on_step"](state, metrics)
+            if (step + 1) % self.tcfg.log_every == 0:
+                print(f"step {step + 1} loss {loss:.4f} gnorm {gnorm:.3f} {dur * 1e3:.0f} ms")
+            if (step + 1) % self.tcfg.ckpt_every == 0:
+                self.ckpt.save_async(step + 1, {k: state[k] for k in ckpt_keys})
+        self.ckpt.wait()
+        state["losses"] = losses
+        return state
