@@ -7,8 +7,9 @@ non-zero):
 
   1. device  — a CUDA card must be present; its name and power limit
                (nvidia-smi) and the torch/CUDA versions.
-  2. build   — nvcc builds every kernel (forward and backward) from the
-               sources in this checkout (sm_90a), one process per source.
+  2. build   — nvcc builds every kernel (forward, backward, PWL exp2) from
+               the sources in this checkout (sm_90a), one process per
+               source, all started together.
   3. kernels — the forward kernel against its plain PyTorch version on the
                card over a sweep (fp32/bf16, causal or not, GQA, ragged S,
                q_offset > 0, exact/PWL exp2, LSE, a strided KV cache), then
@@ -20,23 +21,37 @@ non-zero):
                ragged S, q_offset > 0, an LSE from a PWL forward, d 16 to
                128, the training shape), then timed at the training shape
                beside the plain version, SDPA's backward and the bound.
-  5. serve   — full-width olmo-1b in bf16 with seeded random weights served
+  5. kernels_pwl — the standalone PWL exp2 kernel against its plain version,
+               bit for bit, in fp32, bf16 and fp16 for K in {2, ..., 64}
+               (inputs down to the fp32 underflow, 0, -0, -inf, NaN; a
+               ragged length, a strided view, an empty tensor), then timed
+               at 2**26 fp32 elements and at the tune path's 30,720 beside
+               the plain version, torch.exp2 (a bandwidth reference; no
+               PyTorch call computes the PWL) and the bound.
+  6. serve   — full-width olmo-1b in bf16 with seeded random weights served
                by ServeEngine, unchunked and with prefill_chunk=512; the
                kernels' launch counts are reset before and read after, and
                must equal one launch per layer per prefill chunk.  One
                request's prefill logits are held against the naive-attention
                path on the card.
-  6. greedy  — the same model in fp32: the engine's greedy tokens must equal
+  7. greedy  — the same model in fp32: the engine's greedy tokens must equal
                sequential_greedy_decode's, or the reference's top two logits
                at the first difference must lie within 1e-3 (a near-tie).
-  7. train   — full-width olmo-1b in bf16 (remat, AdamW, cosine schedule)
+  8. train   — full-width olmo-1b in bf16 (remat, AdamW, cosine schedule)
                trained by the port's Trainer for 6 steps at batch 4 x 2048
                of SyntheticLM(seed=0); the launch counts are reset before
                and read after (forward: layers x 2 x steps, with the remat
                recompute; dQ and dK/dV: layers x steps); the loss must be
                finite at every step and lower at the last than at the first.
-  8. grads   — one batch's gradients at full width and depth 2, kernel path
+  9. grads   — one batch's gradients at full width and depth 2, kernel path
                against the naive-attention path, in fp32 and in bf16.
+ 10. tune    — the FSA design-space autotuner (repro_torch.tune) on the
+               card: the "paper" preset at the launcher's defaults and the
+               "full" preset (320 points); the caches are cleared and the
+               PWL kernel's launch count reset before, read after: one
+               launch per distinct segment count (the Fig. 12 sweeps).  Both
+               must pass their paper and simulator checks, and the paper
+               point's Fig. 12 MRE must equal the plain CPU value.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -56,15 +71,17 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.core.pwl_exp2 import LOG2_E  # noqa: E402
+from repro_torch.core.pwl_exp2 import LOG2_E, fp16_negative_normals, pwl_error_stats  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd  # noqa: E402
+from repro_torch.kernels.pwl_exp2 import kernel as pwl  # noqa: E402
 from repro_torch.models.model import decode_step, init_cache, init_params, prefill_step  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -75,9 +92,12 @@ from repro_torch.serve import (  # noqa: E402
 )
 from repro_torch.train.train_step import value_and_grad  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.tune import objectives as tune_objectives  # noqa: E402
+from repro_torch.tune import run_tune  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 # Kernel vs plain version on the same inputs, as (atol, rtol).  fp32: only
@@ -228,9 +248,9 @@ def _attention_cost(b, s, h, d, itemsize):
     return flops, nbytes
 
 
-def _bound(flops, nbytes):
+def _bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     """The least time the card could take, in ms, and what bounds it."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -370,7 +390,101 @@ def time_bwd() -> dict:
     return timing
 
 
-# -- phase 5: serve -------------------------------------------------------------
+# -- phase 5: the standalone PWL exp2 kernel ----------------------------------------
+
+PWL_SEGMENTS = (2, 4, 8, 16, 32, 64)
+PWL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# The tune path's size (every negative normal fp16 value, one Fig. 12
+# sweep), and a size that needs the card's whole memory bandwidth.
+PWL_SIZES = (30_720, 2 ** 26)
+# fp32 operations per element: ceil, x - x_i, (x_f + 1) * K (2), floor, the
+# index clip (2), slope * x_f + intercept (2), the exponent update, the flush
+# compare.
+PWL_OPS = 11
+
+
+def _pwl_inputs() -> torch.Tensor:
+    """tests/test_torch_pwl_exp2.py's inputs, with -inf and NaN added."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        -np.abs(rng.standard_normal(50_000)) * 30.0,
+        np.linspace(-152.0, -118.0, 20_001),  # results around the fp32 underflow
+        rng.uniform(-1.0, 0.0, 10_000),
+        [0.0, -0.0, -1.0, -125.0, -126.0, -127.0, -148.0, -149.0, -1e30, 2.5,
+         -np.inf, np.nan],
+    ]).astype(np.float32)
+    return torch.from_numpy(x).cuda()
+
+
+def _compare_bits(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
+    """Elements whose bits differ, and the largest |a - b| over them; NaN
+    matches NaN whatever its payload."""
+    ints = torch.int32 if a.element_size() == 4 else torch.int16
+    both_nan = torch.isnan(a.float()) & torch.isnan(b.float())
+    differ = (a.view(ints) != b.view(ints)) & ~both_nan
+    n = int(differ.sum())
+    err = float((a.float() - b.float())[differ].abs().max()) if n else 0.0
+    return n, err
+
+
+def check_pwl() -> tuple[int, float]:
+    """The kernel against its plain version on the card, bit for bit; the
+    number of elements compared and the largest |kernel - plain|."""
+    x32 = _pwl_inputs()
+    compared = 0
+    max_err = 0.0
+
+    def compare(view: torch.Tensor, k: int, name: str) -> None:
+        nonlocal compared, max_err
+        out = pwl.pwl_exp2_cuda(view, num_segments=k)
+        ref = pwl.pwl_exp2_plain(view, k)
+        torch.cuda.synchronize()
+        if out.shape != view.shape or out.dtype != view.dtype:
+            raise AssertionError(f"pwl_exp2 gave {out.shape} {out.dtype} for {view.shape} {view.dtype}")
+        n, err = _compare_bits(out, ref)
+        max_err = max(max_err, err)
+        if n:
+            raise AssertionError(
+                f"pwl_exp2 differs from plain on {n} elements, by up to {err} ({view.dtype}, K={k}, {name})")
+        compared += view.numel()
+
+    for dtype in PWL_DTYPES:
+        x = x32.to(dtype)
+        # whole (16-byte vectors and a scalar tail), ragged (misaligned: the
+        # scalar path), strided (made contiguous by the wrapper), empty.
+        views = {"whole": x, "ragged": x[1:], "strided": x[::3], "empty": x[:0]}
+        for k in PWL_SEGMENTS:
+            for name, view in views.items():
+                compare(view, k, name)
+        emit("kernels_pwl", dtype=str(dtype), segments=list(PWL_SEGMENTS),
+             views={n: v.numel() for n, v in views.items()}, elements_differing=0)
+    # The tune path's own input: the Fig. 12 sweep, fp32.
+    fig12 = torch.from_numpy(fp16_negative_normals()).cuda()
+    for k in PWL_SEGMENTS:
+        compare(fig12, k, "fig12")
+    emit("kernels_pwl", dtype="torch.float32", segments=list(PWL_SEGMENTS),
+         views={"fig12": fig12.numel()}, elements_differing=0, max_abs_err=max_err)
+    return compared, max_err
+
+
+def time_pwl() -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for n in PWL_SIZES:
+        x = -30.0 * torch.rand(n, generator=gen, device="cuda")
+        ms = cuda_ms(lambda: pwl.pwl_exp2_cuda(x, num_segments=8))
+        plain_ms = cuda_ms(lambda: pwl.pwl_exp2_plain(x, 8))
+        exp2_ms = cuda_ms(lambda: torch.exp2(x))
+        nbytes = 2 * n * x.element_size()  # x read once, the result written once
+        bound_ms, bound_by = _bound(PWL_OPS * n, nbytes, PEAK_FP32_FLOPS)
+        row = dict(elements=n, dtype="float32", num_segments=8, ms=ms, plain_ms=plain_ms,
+                   torch_exp2_ms=exp2_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   flops=PWL_OPS * n, bytes=nbytes)
+        emit("kernels_pwl", timing=row)
+        rows.append(row)
+    return rows
+
+# -- phase 6: serve -------------------------------------------------------------
 
 SERVE_PROMPT_LENS = (64, 1536, 200, 700, 96, 1100, 400, 1400)
 MAX_NEW = 16
@@ -449,7 +563,7 @@ def serve(cfg, params) -> dict:
     return dict(runs=runs, launches=launches)
 
 
-# -- phase 6: greedy equivalence in fp32 ------------------------------------------
+# -- phase 7: greedy equivalence in fp32 ------------------------------------------
 
 GREEDY_PROMPT_LENS = (37, 130, 256)
 
@@ -488,7 +602,7 @@ def greedy(cfg) -> dict:
     return dict(near_ties=near_ties)
 
 
-# -- phase 7: train --------------------------------------------------------------
+# -- phase 8: train --------------------------------------------------------------
 
 TRAIN_SHAPE = ShapeConfig("chip_smoke", 2048, 4, "train")  # seq 2048, batch 4
 TRAIN_STEPS = 6
@@ -535,7 +649,7 @@ def train(cfg) -> dict:
     return dict(launches=launches, step_s=step_s, tokens_per_s=tokens / step_s, losses=losses)
 
 
-# -- phase 8: gradients, kernel path vs naive path ---------------------------------
+# -- phase 9: gradients, kernel path vs naive path ---------------------------------
 
 GRADS_DEPTH, GRADS_BATCH, GRADS_SEQ = 2, 2, 1024
 # Each leaf's max |kernel - naive| over its max |naive|.  fp32: the two paths
@@ -570,6 +684,54 @@ def grads(cfg) -> dict:
     return worst
 
 
+# -- phase 10: the autotuner ------------------------------------------------------------
+
+TUNE_PRESETS = ("paper", "full")
+
+
+def _device_ms(prof) -> float:
+    return sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ) / 1e3
+
+
+def tune() -> dict:
+    """Both presets through repro_torch.tune on the card at the launcher's
+    defaults, each timed on the host clock and traced for its device time;
+    the PWL kernel's launches over the two runs."""
+    tune_objectives._accuracy_cached.cache_clear()
+    tune_objectives._pwl_stats_cached.cache_clear()
+    cpu_mre = pwl_error_stats(8)["mre"]
+    reports, seconds, device_ms = {}, {}, {}
+    torch.cuda.synchronize()
+    pwl.launch_count = 0
+    for preset in TUNE_PRESETS:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            reports[preset] = run_tune(preset, device="cuda")
+            torch.cuda.synchronize()
+            seconds[preset] = time.perf_counter() - t0
+        device_ms[preset] = _device_ms(prof)
+    launches = pwl.launch_count
+    segments = sorted({r["pwl_segments"] for rep in reports.values() for r in rep["records"]} | {8})
+    for preset, rep in reports.items():
+        emit("tune", preset=preset, seconds=seconds[preset], device_ms=device_ms[preset],
+             device_share=device_ms[preset] / 1e3 / seconds[preset],
+             points=rep["num_points"], mesh_devices=rep["mesh_devices"],
+             per_device_counts=rep["per_device_counts"], frontier_size=rep["frontier_size"],
+             accuracy_seq=rep["accuracy_seq"], paper=rep["paper"],
+             paper_checks_ok=rep["paper_checks_ok"], sim_checks_ok=rep["sim_checks_ok"],
+             pwl_mre_8seg=rep["paper"]["pwl_mre"], pwl_mre_8seg_cpu=cpu_mre)
+        if not (rep["paper_checks_ok"] and rep["sim_checks_ok"]):
+            raise AssertionError(f"tune {preset}: checks failed: {rep['paper_checks']} {rep['sim_checks']}")
+        if rep["paper"]["pwl_mre"] != cpu_mre:
+            raise AssertionError(f"tune {preset}: Fig. 12 MRE {rep['paper']['pwl_mre']} != CPU {cpu_mre}")
+    emit("tune", pwl_launches=launches, expected=len(segments), segments=segments)
+    if launches != len(segments):
+        raise AssertionError(f"pwl_exp2 launched {launches} times, expected {len(segments)} ({segments})")
+    return dict(launches=launches, seconds=seconds)
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -593,6 +755,8 @@ def main() -> None:
     timing = time_flash()
     bwd_err = check_bwd_sweep()
     bwd_timing = time_bwd()
+    pwl_compared, pwl_err = check_pwl()
+    pwl_timing = time_pwl()
 
     cfg = get_config("olmo-1b")
     params = init_params(cfg, seed=0, device="cuda")
@@ -604,6 +768,8 @@ def main() -> None:
     trained = train(cfg)
     torch.cuda.empty_cache()
     grads(cfg)
+    torch.cuda.empty_cache()
+    tuned = tune()
 
     serve_shape = next(r for r in timing if r["shape"] == [1, 2048, 16, 128])
     fwd_launches = dict(serve=served["launches"], train=trained["launches"]["flash_fwd"])
@@ -630,6 +796,18 @@ def main() -> None:
             bound_by=row["bound_by"], library_ms=bwd_timing["library_ms"],
             shape=bwd_timing["shape"], whole_backward=bwd_timing["whole"],
         ))
+    path_size = next(r for r in pwl_timing if r["elements"] == PWL_SIZES[0])
+    records.append(dict(
+        name="pwl_exp2", route="cuda", source="src/repro_torch/kernels/csrc/pwl_exp2.cu",
+        replaces="src/repro/kernels/pwl_exp2/kernel.py:23",
+        launches=tuned["launches"], launches_by_path=dict(tune=tuned["launches"]),
+        max_abs_err=pwl_err, tol="bit-equal", elements_compared=pwl_compared,
+        ms=path_size["ms"], plain_ms=path_size["plain_ms"], bound_ms=path_size["bound_ms"],
+        bound_by=path_size["bound_by"],
+        # No single PyTorch call computes the PWL exp2; torch.exp2 on the
+        # same tensor is in by_size as a bandwidth reference.
+        library_ms=None, elements=path_size["elements"], by_size=pwl_timing,
+    ))
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,16 @@ CPU: the multiply and the add are rounded separately, and results below the
 smallest normal float32 are flushed to zero, as the paper's hardware does
 (§6.2.1) and as XLA's flush-to-zero does to the reference.  The CUDA kernels
 share ``kernels/csrc/pwl_exp2.cuh``, which computes the same thing.
+
+``pwl_error_stats`` (Fig. 12) takes the PWL it measures as an argument: this
+module's ``pwl_exp2`` by default, the CUDA kernel where the autotuner runs it
+on the card (``tune/objectives.py``).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -31,6 +36,8 @@ __all__ = [
     "segment_table",
     "packed_coeff_table",
     "pwl_exp2",
+    "fp16_negative_normals",
+    "pwl_error_stats",
 ]
 
 
@@ -89,3 +96,57 @@ def pwl_exp2(x: torch.Tensor, num_segments: int = DEFAULT_SEGMENTS) -> torch.Ten
     out = frac * _pow2(e)
     out = torch.where((x_i < -126) | (out < _FLT_MIN), 0.0, out)
     return out.to(x.dtype)
+
+
+def fp16_negative_normals() -> np.ndarray:
+    """Every negative normal fp16 value (30,720 of them), as float32."""
+    # sign=1, exponent in [1, 30], mantissa 0..1023.
+    bits = np.arange(0, 1 << 15, dtype=np.uint16)
+    vals = (bits | np.uint16(0x8000)).view(np.float16)
+    mask = np.isfinite(vals) & (vals < 0) & (np.abs(vals) >= 2.0 ** -14)
+    return vals[mask].astype(np.float32)
+
+
+def pwl_error_stats(
+    num_segments: int = DEFAULT_SEGMENTS,
+    pwl: Callable[[torch.Tensor, int], torch.Tensor] = pwl_exp2,
+) -> dict[str, float]:
+    """Exhaustive error over all negative *normal* fp16 values (paper §6.2.1).
+
+    Mean absolute and mean relative error of the PWL exp2 against fp64
+    ground truth; reproduces Fig. 12 (8 segments: MAE ~1.4e-4, MRE
+    2.728e-2).  The inputs are enumerated in numpy and ``pwl(x,
+    num_segments)`` evaluates them, given a float32 CPU tensor and returning
+    a tensor on any device; the fp16 flush and the fp64 statistics are the
+    reference's, in numpy.  This module's ``pwl_exp2`` and the CUDA kernel
+    give the bits of ``repro.core.pwl_exp2.pwl_exp2``, so the statistics
+    equal the reference's to the last digit.
+    """
+    x = fp16_negative_normals()
+
+    def _ftz16(v: np.ndarray) -> np.ndarray:
+        """Round to fp16 and flush subnormal results to zero (§6.2.1)."""
+        h = v.astype(np.float16)
+        h[np.abs(h.astype(np.float64)) < 2.0 ** -14] = 0
+        return h.astype(np.float64)
+
+    # Accelerator output: fp16 with subnormal results flushed to zero.
+    out = pwl(torch.from_numpy(x), num_segments)
+    approx = _ftz16(out.cpu().numpy().astype(np.float64))
+    # Ground truth: exact exp2 rounded to fp16 *keeping* subnormals.  The
+    # mismatch in subnormal handling is why the MRE plateaus near 2.7e-2
+    # while the MAE keeps shrinking with more segments (Fig. 12).
+    exact = np.exp2(x.astype(np.float64)).astype(np.float16).astype(np.float64)
+    abs_err = np.abs(approx - exact)
+    # 0/0 (both sides an exact zero for x <= -25) counts as zero error; the
+    # mean runs over all evaluated points, as the paper's MRE does.
+    nz = exact > 0
+    rel_err = np.zeros_like(abs_err)
+    rel_err[nz] = abs_err[nz] / exact[nz]
+    return {
+        "num_segments": float(num_segments),
+        "count": float(x.size),
+        "mae": float(abs_err.mean()),
+        "mre": float(rel_err.mean()),
+        "max_abs": float(abs_err.max()),
+    }

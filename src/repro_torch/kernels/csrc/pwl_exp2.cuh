@@ -1,8 +1,9 @@
 // Piecewise-linear exp2 of the paper's §3.3 as a device function.
 //
-// Port of `_exp2_inline` (src/repro/kernels/flash_attention/kernel.py:43)
-// and of the element computation of the standalone PWL kernel
-// (src/repro/kernels/pwl_exp2/kernel.py:23). For x <= 0:
+// Used by the forward kernel's PWL mode (flash_fwd.cu, the port of
+// `_exp2_inline`, src/repro/kernels/flash_attention/kernel.py:43) and by the
+// standalone kernel (pwl_exp2.cu, the port of
+// src/repro/kernels/pwl_exp2/kernel.py:23). For x <= 0:
 //
 //   x_i = ceil(x), x_f = x - x_i in (-1, 0]
 //   k   = clip(floor((x_f + 1) * K), 0, K - 1)
@@ -10,9 +11,17 @@
 //
 // The multiply and the add are rounded separately (no contraction into an
 // FMA), and results below the smallest normal float are flushed to zero:
-// that is what the reference computes under XLA, whose CPU and TPU backends
-// flush subnormals, and what the paper's hardware does (§6.2.1). With both,
-// the result is bit-equal to repro_torch.core.pwl_exp2.pwl_exp2 in float32.
+// that is what the jnp function repro.core.pwl_exp2.pwl_exp2 computes under
+// XLA, whose CPU and TPU backends flush subnormals, and what the paper's
+// hardware does (§6.2.1). With both, the result is bit-equal in float32 to
+// repro.core.pwl_exp2.pwl_exp2 and to the port's plain version
+// repro_torch.core.pwl_exp2.pwl_exp2.
+//
+// It is not bit-equal to the Pallas kernel `pwl_exp2_pallas`: in interpret
+// mode that kernel rounds slope * x_f + intercept once, as a fused
+// multiply-add, and so differs from this function by 1 ulp in float32 on
+// about one input in eight, and is equal in bfloat16 (pinned by
+// tests/test_torch_pwl_exp2_kernel.py and ROADMAP queue 3).
 #pragma once
 
 #include <cfloat>

@@ -8,7 +8,9 @@ on the same inputs at the kernel's own tiling (fp32 3e-5 for the forward
 and 1e-4 + 1e-5 relative for the backward: the order of fp32 sums, over
 more terms in dK and dV; bf16 1e-3 + 2**-7 relative: each output is
 rounded to bf16 once, and two fp32 values on either side of a rounding
-boundary land one bf16 step apart; LSE 1e-4).
+boundary land one bf16 step apart; LSE 1e-4).  The PWL exp2 kernel is held
+to its plain version bit for bit: both round the multiply and the add
+separately and the result once to the output's type.
 """
 
 import dataclasses
@@ -19,13 +21,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.registry import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core.pwl_exp2 import pwl_error_stats  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_bwd  # noqa: E402
+from repro_torch.kernels.pwl_exp2 import kernel as pwl_kernel  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, sequential_greedy_decode  # noqa: E402
 from repro_torch.train.train_step import value_and_grad  # noqa: E402
+from repro_torch.tune import run_tune  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -172,3 +177,62 @@ def test_full_width_loss_backward_through_the_kernels(cuda_device):
     torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=0)
     for g, r in zip(tree_leaves(got), tree_leaves(ref)):
         assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+def _pwl_inputs(device) -> torch.Tensor:
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        -np.abs(rng.standard_normal(50_001)) * 30.0,
+        np.linspace(-152.0, -118.0, 20_001),  # results around the fp32 underflow
+        rng.uniform(-1.0, 0.0, 10_000),
+        [0.0, -0.0, -1.0, -126.0, -149.0, -1e30, 2.5, -np.inf, np.nan],
+    ]).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bits, with NaN where the other has NaN (NaN payloads aside)."""
+    nan = torch.isnan(a.float())
+    ints = torch.int32 if a.element_size() == 4 else torch.int16
+    return torch.equal(nan, torch.isnan(b.float())) and torch.equal(
+        a.view(ints)[~nan], b.view(ints)[~nan])
+
+
+@pytest.mark.parametrize("num_segments", [2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_pwl_exp2_kernel_matches_plain(cuda_device, dtype, num_segments):
+    """Bit-equal to the plain version on the card; the ragged length takes
+    the scalar tail after the 16-byte vectors, and an offset view the
+    scalar path alone."""
+    x = _pwl_inputs(cuda_device).to(dtype)
+    for view in (x, x[1:], x[::3]):
+        before = pwl_kernel.launch_count
+        out = pwl_kernel.pwl_exp2_cuda(view, num_segments=num_segments)
+        torch.cuda.synchronize()
+        assert pwl_kernel.launch_count == before + 1
+        assert out.dtype == dtype and out.shape == view.shape
+        assert _same_bits(out, pwl_kernel.pwl_exp2_plain(view, num_segments))
+
+
+def test_pwl_exp2_kernel_refuses_what_it_cannot_take(cuda_device):
+    before = pwl_kernel.launch_count
+    for bad in (dict(x=torch.zeros(8, device=cuda_device, dtype=torch.float64)),
+                dict(x=torch.zeros(8, device=cuda_device), num_segments=65)):
+        with pytest.raises(ValueError):
+            pwl_kernel.pwl_exp2_cuda(**bad)
+    assert pwl_kernel.pwl_exp2_cuda(torch.zeros(0, device=cuda_device)).numel() == 0
+    assert pwl_kernel.launch_count == before
+
+
+def test_pwl_error_stats_on_the_card_equal_the_cpu(cuda_device):
+    before = pwl_kernel.launch_count
+    ours = pwl_error_stats(8, lambda x, k: pwl_kernel.pwl_exp2_cuda(x.cuda(), num_segments=k))
+    assert pwl_kernel.launch_count == before + 1
+    assert ours == pwl_error_stats(8)
+    assert f"{ours['mre']:.3e}" == "2.728e-02"
+
+
+def test_run_tune_paper_on_the_card(cuda_device):
+    report = run_tune("paper", seed=0, paper_check_seq=512, device="cuda")
+    assert report["paper_checks_ok"] and report["sim_checks_ok"]
+    assert report["mesh_devices"] == torch.cuda.device_count()
