@@ -7,13 +7,23 @@ non-zero):
 
   1. device  — a CUDA card must be present; its name and power limit
                (nvidia-smi) and the torch/CUDA versions.
-  2. build   — nvcc builds every kernel (forward, backward, PWL exp2) from
-               the sources in this checkout (sm_90a), one process per
-               source, all started together.
-  3. kernels — the forward kernel against its plain PyTorch version on the
-               card over a sweep (fp32/bf16, causal or not, GQA, ragged S,
-               q_offset > 0, exact/PWL exp2, LSE, a strided KV cache), then
-               timed at the serving and training shapes beside the plain
+  2. build   — nvcc builds every kernel (the two forwards, backward, PWL
+               exp2) from the sources in this checkout (sm_90a), one
+               process per source, all started together; ptxas's registers
+               and spills of each tensor-core forward instantiation (none may
+               spill at d = 128).
+  3. kernels — the forward kernels against their plain PyTorch version on
+               the card over a sweep (fp32/bf16, d 16 to 128, causal or not,
+               GQA, ragged Sq and Sk, q_offset > 0, exact/PWL exp2 with K 8
+               and 4, LSE, a strided KV cache, B up to 4, and the main
+               path's training and chunked-prefill shapes); the kernel that
+               takes each case (kernel.KERNELS: "sm90" for bf16 at d 64 and
+               128, "simt" otherwise) is held against the plain version that
+               rounds P as it does, and the sm90 kernel also against the
+               fp32-P plain version within the bound of P's rounding
+               (TOL_FP32P, element by element).  Then the sm90
+               kernel is timed at the serving and training shapes, and the
+               simt kernel at the fp32 greedy phase's, beside the plain
                version, F.scaled_dot_product_attention (a yardstick only;
                the port never calls it) and the card's bound.
   4. kernels_bwd — the dQ and dK/dV kernels against the plain FA-2 version
@@ -31,17 +41,19 @@ non-zero):
   6. serve   — full-width olmo-1b in bf16 with seeded random weights served
                by ServeEngine, unchunked and with prefill_chunk=512; the
                kernels' launch counts are reset before and read after, and
-               must equal one launch per layer per prefill chunk.  One
+               must equal one sm90 launch per layer per prefill chunk.  One
                request's prefill logits are held against the naive-attention
                path on the card.
   7. greedy  — the same model in fp32: the engine's greedy tokens must equal
                sequential_greedy_decode's, or the reference's top two logits
-               at the first difference must lie within 1e-3 (a near-tie).
+               at the first difference must lie within 1e-3 (a near-tie);
+               its prefills go through the simt kernel alone (counts reset
+               before the engine runs, read after).
   8. train   — full-width olmo-1b in bf16 (remat, AdamW, cosine schedule)
                trained by the port's Trainer for 6 steps at batch 4 x 2048
                of SyntheticLM(seed=0); the launch counts are reset before
-               and read after (forward: layers x 2 x steps, with the remat
-               recompute; dQ and dK/dV: layers x steps); the loss must be
+               and read after (forward, all sm90: layers x 2 x steps, with
+               the remat recompute; dQ and dK/dV: layers x steps); the loss must be
                finite at every step and lower at the last than at the first.
   9. grads   — one batch's gradients at full width and depth 2, kernel path
                against the naive-attention path, in fp32 and in bf16.
@@ -62,6 +74,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -102,14 +115,25 @@ PEAK_BYTES = 3.35e12
 
 # Kernel vs plain version on the same inputs, as (atol, rtol).  fp32: only
 # the order of the fp32 sums differs (the JAX tests' 3e-5).  bf16: both
-# compute in fp32 and round the output to bf16 once, so two results whose
-# fp32 values straddle a rounding boundary differ by one bf16 step, at most
+# compute in fp32 (the sm90 kernel and its plain twin both round P to bf16
+# for PV) and round the output to bf16 once, so two results whose fp32
+# values straddle a rounding boundary differ by one bf16 step, at most
 # 2**-7 of the value; 1e-3 covers outputs near zero.
 TOL = {torch.float32: (3e-5, 0.0), torch.bfloat16: (1e-3, 2.0 ** -7)}
 TOL_LSE = 1e-4
-# The plain version runs at the kernel's tiling: with the PWL exp2 the LSE
-# depends on where the k tiles break (see kernel.py).
-TILE = flash.KERNEL_BLOCK
+# The sm90 kernel vs the fp32-P plain version (the reference's numerics).
+# o = sum_j p_j v_j / l with l = sum_j p_j from the fp32 P in both; rounding
+# each p_j to bf16 moves it by at most 2**-8 of itself, so o moves by at
+# most 2**-8 * sum_j p_j |v_j| / l, the fp32-P plain version's output on
+# |v| (the "weighted |v|" of each element).  Each output is then rounded
+# to bf16 (one step, 2**-7 of the value), and 1e-3 covers outputs near
+# zero: |kernel - plain| <= 1e-3 + 2**-8 * weighted|v| + 2**-7 * |plain|.
+TOL_FP32P = (1e-3, 2.0 ** -8, 2.0 ** -7)  # (atol, of weighted |v|, rtol)
+# The plain version runs at the kernel's tiles (flash.fwd_tile): with the
+# PWL exp2 the LSE depends on where the k tiles break (see kernel.py); the
+# backward kernels have their own.
+fwd_tile = flash.fwd_tile
+BWD_TILE = flash_bwd.KERNEL_BLOCK
 # Prefill logits, kernel path vs naive path, both bf16: relative to the
 # largest logit.  Each of the 16 layers rounds the residual stream to bf16
 # (2**-9 relative) a few times; 5e-2 is ~25 such roundings.
@@ -146,28 +170,65 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def profiled_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: every CUDA kernel and memset it
+    launches over ``iters`` calls (torch.profiler), without the host's
+    enqueue time that ``cuda_ms`` also sees when the card waits for it."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return _device_ms(prof) / iters
+
+
+def reset_fwd_counts() -> None:
+    for name in flash.launch_counts:
+        flash.launch_counts[name] = 0
+
+
 def _randn(shape, gen, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
 # -- phase 3: kernels ---------------------------------------------------------
 
-# (B, Sq, Sk, H, Hkv, d, causal, q_offset, dtype, exp2, lse, kv capacity)
+# (B, Sq, Sk, H, Hkv, d, causal, q_offset, dtype, exp2, PWL segments, lse,
+# kv capacity)
 SWEEP = [
-    (1, 128, 128, 1, 1, 64, False, 0, torch.float32, "exact", False, None),
-    (2, 256, 256, 4, 2, 64, True, 0, torch.float32, "exact", True, None),
-    (1, 256, 512, 4, 1, 128, True, 256, torch.float32, "exact", True, None),
-    (1, 100, 200, 4, 4, 32, True, 100, torch.float32, "pwl", True, None),
-    (2, 64, 64, 8, 2, 16, False, 0, torch.bfloat16, "exact", False, None),
-    (1, 512, 512, 16, 16, 128, True, 0, torch.bfloat16, "pwl", True, None),
-    (1, 300, 812, 16, 16, 128, True, 512, torch.bfloat16, "exact", True, None),
-    (2, 200, 700, 4, 2, 64, True, 500, torch.float32, "pwl", False, 1024),
-    (1, 2048, 2048, 16, 16, 128, True, 0, torch.bfloat16, "exact", True, None),
+    (1, 128, 128, 1, 1, 64, False, 0, torch.float32, "exact", 8, False, None),
+    (2, 256, 256, 4, 2, 64, True, 0, torch.float32, "exact", 8, True, None),
+    (1, 256, 512, 4, 1, 128, True, 256, torch.float32, "exact", 8, True, None),
+    (1, 100, 200, 4, 4, 32, True, 100, torch.float32, "pwl", 8, True, None),
+    (2, 64, 64, 8, 2, 16, False, 0, torch.bfloat16, "exact", 8, False, None),
+    (1, 512, 512, 16, 16, 128, True, 0, torch.bfloat16, "pwl", 8, True, None),
+    (1, 300, 812, 16, 16, 128, True, 512, torch.bfloat16, "exact", 8, True, None),
+    (2, 200, 700, 4, 2, 64, True, 500, torch.float32, "pwl", 8, False, 1024),
+    (1, 2048, 2048, 16, 16, 128, True, 0, torch.bfloat16, "exact", 8, True, None),
+    # The sm90 kernel (bf16, d 64 and 128): d 64 with GQA rep 4; Sq and Sk
+    # off the 128-row tile (1, 17, 200, 1000); q_offset off the tile; a KV
+    # cache prefix; B = 3; the PWL at K 8 and 4 with LSE; not causal.
+    (1, 256, 256, 8, 2, 64, True, 0, torch.bfloat16, "exact", 8, True, None),
+    (2, 1, 17, 8, 2, 64, True, 16, torch.bfloat16, "exact", 8, True, None),
+    (1, 17, 200, 4, 4, 128, True, 183, torch.bfloat16, "pwl", 4, True, None),
+    (1, 200, 1000, 16, 16, 128, True, 800, torch.bfloat16, "exact", 8, True, None),
+    (2, 300, 700, 8, 2, 128, True, 400, torch.bfloat16, "exact", 8, True, 1024),
+    (3, 1000, 1000, 16, 16, 128, True, 0, torch.bfloat16, "pwl", 8, True, None),
+    (1, 1000, 1000, 8, 2, 64, True, 0, torch.bfloat16, "pwl", 4, True, None),
+    (2, 200, 1000, 4, 4, 128, False, 0, torch.bfloat16, "exact", 8, True, None),
+    # The sm90 kernel at the main path's own shapes: the training shape with
+    # LSE (1024 work tiles, ~8 per CTA of the persistent grid), and two
+    # chunks of a 2048-token bucket with prefill_chunk=512 (q_offset 1024
+    # and 1536: Sk 1536 and 2048 of a 2048-slot cache).
+    (4, 2048, 2048, 16, 16, 128, True, 0, torch.bfloat16, "exact", 8, True, None),
+    (1, 512, 1536, 16, 16, 128, True, 1024, torch.bfloat16, "exact", 8, True, 2048),
+    (1, 512, 2048, 16, 16, 128, True, 1536, torch.bfloat16, "exact", 8, True, 2048),
 ]
 
 
 def _flash_inputs(case, gen):
-    b, sq, sk, h, hkv, d, causal, q_offset, dtype, exp2, lse, capacity = case
+    b, sq, sk, h, hkv, d, causal, q_offset, dtype, exp2, segments, lse, capacity = case
     q = _randn((b, sq, h, d), gen, dtype)
     if capacity is None:
         k = _randn((b, sk, hkv, d), gen, dtype)
@@ -176,7 +237,7 @@ def _flash_inputs(case, gen):
         k = _randn((b, capacity, hkv, d), gen, dtype)[:, :sk]
         v = _randn((b, capacity, hkv, d), gen, dtype)[:, :sk]
     kw = dict(causal=causal, scale=1.0 / math.sqrt(d), q_offset=q_offset,
-              exp2_impl=exp2, num_segments=8, return_lse=lse)
+              exp2_impl=exp2, num_segments=segments, return_lse=lse)
     return q, k, v, kw
 
 
@@ -189,26 +250,55 @@ def _max_err(a, b, dtype, tol=TOL):
     return float(err.max()), float((err / (atol + rtol * b.abs())).max())
 
 
-def check_flash_sweep() -> float:
-    """Largest |kernel - plain| over the sweep."""
+def _fp32_p_err(out, ref, weighted_abs_v):
+    """Largest |out - ref| and the largest share of TOL_FP32P it uses."""
+    atol, of_v, rtol = TOL_FP32P
+    err = (out.float() - ref.float()).abs()
+    tol = atol + of_v * weighted_abs_v.float() + rtol * ref.float().abs()
+    return float(err.max()), float((err / tol).max())
+
+
+def check_flash_sweep() -> dict:
+    """Largest |kernel - plain| over the sweep, by kernel (and, for sm90,
+    against the fp32-P plain version)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = 0.0
+    worst = {"sm90": 0.0, "simt": 0.0, "sm90_vs_fp32_p": 0.0}
     for case in SWEEP:
         q, k, v, kw = _flash_inputs(case, gen)
+        kernel = flash.kernel_for(q.dtype, q.shape[-1]).name
+        tile = fwd_tile(q.dtype, q.shape[-1])
+        before = dict(flash.launch_counts)
         out = flash.flash_attention_fwd(q, k, v, **kw)
-        ref = flash.flash_attention_fwd_plain(q, k, v, block_q=TILE, block_k=TILE, **kw)
+        plain = {"plain": flash.flash_attention_fwd_plain(q, k, v, block_q=tile, block_k=tile, **kw)}
+        if kernel == "sm90":
+            plain["fp32_p"] = flash.flash_attention_fwd_plain(
+                q, k, v, block_q=tile, block_k=tile, fp32_p=True, **kw)
+            weighted_abs_v = flash.flash_attention_fwd_plain(
+                q, k, v.abs(), block_q=tile, block_k=tile, fp32_p=True, **dict(kw, return_lse=False))
         torch.cuda.synchronize()
+        if flash.launch_counts[kernel] != before[kernel] + 1:
+            raise AssertionError(f"{case} did not launch the {kernel} kernel: {flash.launch_counts}")
+        fields = {}
         if kw["return_lse"]:
-            (out, lse), (ref, lse_ref) = out, ref
-            lse_err = float((lse - lse_ref).abs().max())
-            if not lse_err <= TOL_LSE:
-                raise AssertionError(f"LSE mismatch {lse_err} > {TOL_LSE} for {case}")
-        err, used = _max_err(out, ref, q.dtype)
-        emit("kernels", case=str(case[:8] + (str(case[8]), case[9], case[10], case[11])),
-             max_abs_err=err, tol=TOL[q.dtype], tol_used=used)
+            out, lse = out
+            for name, (_, lse_ref) in plain.items():
+                lse_err = float((lse - lse_ref).abs().max())
+                fields[f"lse_err_{name}"] = lse_err
+                if not lse_err <= TOL_LSE:
+                    raise AssertionError(f"LSE mismatch {lse_err} > {TOL_LSE} against {name} for {case}")
+            plain = {name: ref for name, (ref, _) in plain.items()}
+        err, used = _max_err(out, plain["plain"], q.dtype)
+        fields.update(max_abs_err=err, tol=TOL[q.dtype], tol_used=used)
+        if kernel == "sm90":
+            err32, used32 = _fp32_p_err(out, plain["fp32_p"], weighted_abs_v)
+            fields.update(max_abs_err_fp32_p=err32, tol_fp32_p=TOL_FP32P, tol_used_fp32_p=used32)
+            worst["sm90_vs_fp32_p"] = max(worst["sm90_vs_fp32_p"], err32)
+        emit("kernels", case=str(case[:8] + (str(case[8]),) + case[9:]), kernel=kernel, **fields)
         if not used <= 1.0 or not torch.isfinite(out.float()).all():
-            raise AssertionError(f"flash_fwd vs plain mismatch ({err}) for {case}")
-        worst = max(worst, err)
+            raise AssertionError(f"{kernel} forward vs plain mismatch ({err}) for {case}")
+        if kernel == "sm90" and not used32 <= 1.0:
+            raise AssertionError(f"sm90 forward vs fp32-P plain beyond TOL_FP32P ({err32}) for {case}")
+        worst[kernel] = max(worst[kernel], err)
     return worst
 
 
@@ -231,7 +321,8 @@ def check_pwl_subnormal_range() -> None:
     kw = dict(causal=False, scale=1.0 / math.sqrt(d), q_offset=0,
               exp2_impl="pwl", num_segments=8, return_lse=False)
     out = flash.flash_attention_fwd(q, k, v, **kw)
-    ref = flash.flash_attention_fwd_plain(q, k, v, block_q=TILE, block_k=TILE, **kw)
+    tile = fwd_tile(q.dtype, d)
+    ref = flash.flash_attention_fwd_plain(q, k, v, block_q=tile, block_k=tile, **kw)
     torch.cuda.synchronize()
     differ = int((out != ref).sum())
     nonzero = int((ref[0, :, 0, 0] != 0).sum())
@@ -254,30 +345,51 @@ def _bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _time_forward(b, s, h, d, dtype, lse, plain_iters, gen, peak_flops):
+    """One causal forward shape: the kernel, its plain version, SDPA and the
+    bound; achieved TFLOP/s and the share of the bound the kernel reaches."""
+    q, k, v = (_randn((b, s, h, d), gen, dtype) for _ in range(3))
+    kw = dict(causal=True, scale=1.0 / math.sqrt(d), q_offset=0,
+              exp2_impl="exact", num_segments=8, return_lse=lse)
+    tile = fwd_tile(dtype, d)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kernel = lambda: flash.flash_attention_fwd(q, k, v, **kw)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    ms, kernel_device_ms = cuda_ms(kernel), profiled_ms(kernel)
+    plain_ms = cuda_ms(lambda: flash.flash_attention_fwd_plain(
+        q, k, v, block_q=tile, block_k=tile, **kw), iters=plain_iters, warmup=1)
+    library_ms, library_device_ms = cuda_ms(library), profiled_ms(library)
+    flops, nbytes = _attention_cost(b, s, h, d, q.element_size())
+    nbytes += b * h * s * 4 if lse else 0
+    bound_ms, bound_by = _bound(flops, nbytes, peak_flops)
+    row = dict(kernel=flash.kernel_for(dtype, d).name, shape=[b, s, h, d], dtype=str(dtype).split(".")[1],
+               causal=True, lse=lse, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+               tflops=flops / ms / 1e9, share_of_bound=bound_ms / ms, vs_library=ms / library_ms,
+               # The same three on the card alone (the kernel's launches, SDPA's).
+               device_ms=kernel_device_ms, library_device_ms=library_device_ms,
+               device_tflops=flops / kernel_device_ms / 1e9,
+               device_share_of_bound=bound_ms / kernel_device_ms,
+               device_vs_library=kernel_device_ms / library_device_ms)
+    emit("kernels", timing=row)
+    return row
+
+
 def time_flash() -> list[dict]:
+    """The sm90 kernel at the serving prefill (B = 1, no LSE) and training
+    (B = 4, LSE for the backward) shapes; the plain version is slow, so the
+    last takes 3 timings."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows = []
-    # Serving prefill (B = 1, no LSE), then training (B = 4, LSE for the
-    # backward); the plain version is slow, so the last takes 3 timings.
-    for b, s, lse, plain_iters in ((1, 512, False, 20), (1, 2048, False, 20), (4, 2048, True, 3)):
-        h, d, dtype = 16, 128, torch.bfloat16
-        q, k, v = (_randn((b, s, h, d), gen, dtype) for _ in range(3))
-        kw = dict(causal=True, scale=1.0 / math.sqrt(d), q_offset=0,
-                  exp2_impl="exact", num_segments=8, return_lse=lse)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        ms = cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, **kw))
-        plain_ms = cuda_ms(lambda: flash.flash_attention_fwd_plain(
-            q, k, v, block_q=TILE, block_k=TILE, **kw), iters=plain_iters, warmup=1)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-        flops, nbytes = _attention_cost(b, s, h, d, 2)
-        nbytes += b * h * s * 4 if lse else 0
-        bound_ms, bound_by = _bound(flops, nbytes)
-        row = dict(shape=[b, s, h, d], dtype="bfloat16", causal=True, lse=lse,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
-        emit("kernels", timing=row)
-        rows.append(row)
-    return rows
+    return [_time_forward(b, s, 16, 128, torch.bfloat16, lse, iters, gen, PEAK_BF16_FLOPS)
+            for b, s, lse, iters in ((1, 512, False, 20), (1, 2048, False, 20), (4, 2048, True, 3))]
+
+
+def time_flash_simt() -> dict:
+    """The simt kernel at the fp32 greedy phase's largest prefill bucket
+    (bound by the CUDA cores' fp32 rate: fp32 inputs never take the tensor
+    cores; SDPA in fp32 as the yardstick)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    return _time_forward(1, 256, 16, 128, torch.float32, False, 20, gen, PEAK_FP32_FLOPS)
 
 
 # -- phase 4: backward kernels -----------------------------------------------------
@@ -323,7 +435,7 @@ def check_bwd_sweep() -> dict:
     for case in BWD_SWEEP:
         args, kw = _bwd_inputs(case, gen)
         got = flash_bwd.flash_attention_bwd(*args, **kw)
-        ref = flash_bwd.flash_attention_bwd_plain(*args, block_q=TILE, block_k=TILE, **kw)
+        ref = flash_bwd.flash_attention_bwd_plain(*args, block_q=BWD_TILE, block_k=BWD_TILE, **kw)
         torch.cuda.synchronize()
         errs = {}
         for name, g, r in zip(("dq", "dk", "dv"), got, ref):
@@ -358,7 +470,7 @@ def time_bwd() -> dict:
     (q, k, v, out, lse, do), kw = _bwd_inputs(case, gen)
     whole_ms = cuda_ms(lambda: flash_bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw))
     plain_ms = cuda_ms(lambda: flash_bwd.flash_attention_bwd_plain(
-        q, k, v, out, lse, do, block_q=TILE, block_k=TILE, **kw), iters=3, warmup=1)
+        q, k, v, out, lse, do, block_q=BWD_TILE, block_k=BWD_TILE, **kw), iters=3, warmup=1)
 
     # Each kernel alone, on the wrapper's buffers.
     lib = flash_bwd._library()
@@ -515,17 +627,18 @@ def serve(cfg, params) -> dict:
         for i, p in enumerate(prompts):
             engine.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
         torch.cuda.synchronize()
-        flash.launch_count = 0
+        reset_fwd_counts()
         t0 = time.perf_counter()
         done = engine.run()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        run_launches = flash.launch_count
+        by_kernel = dict(flash.launch_counts)
+        run_launches = sum(by_kernel.values())
         expected = _expected_launches(engine, prompts, cfg)
-        if run_launches != expected:
+        if by_kernel != dict(sm90=expected, simt=0):
             raise AssertionError(
-                f"flash_fwd launched {run_launches} times, expected {expected} "
-                f"(prefill_chunk={chunk})"
+                f"forward launched {run_launches} times ({by_kernel}), expected {expected} "
+                f"all sm90 (prefill_chunk={chunk})"
             )
         if len(done) != len(prompts) or any(len(r.output) != MAX_NEW for r in done):
             raise AssertionError(f"engine finished {len(done)} requests, not all with {MAX_NEW} tokens")
@@ -538,7 +651,8 @@ def serve(cfg, params) -> dict:
                    prefill_ms_p50=float(np.median(
                        [r.t_first_token - r.t_prefill for r in done])) * 1e3,
                    tpot_ms_p50=float(np.median(tpot)) * 1e3,
-                   flash_launches=run_launches, stats=engine.stats)
+                   flash_launches=run_launches, flash_launches_by_kernel=by_kernel,
+                   stats=engine.stats)
         emit("serve", **run)
         runs.append(run)
     same = sum(outputs[None][i] == outputs[512][i] for i in outputs[None])
@@ -584,7 +698,14 @@ def greedy(cfg) -> dict:
     engine = ServeEngine(cfg, params, batch_size=2, max_len=512, device="cuda")
     for i, p in enumerate(prompts):
         engine.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+    torch.cuda.synchronize()
+    reset_fwd_counts()
     done = {r.rid: r.output for r in engine.run()}
+    torch.cuda.synchronize()
+    by_kernel = dict(flash.launch_counts)
+    expected = _expected_launches(engine, prompts, cfg)
+    if by_kernel != dict(sm90=0, simt=expected):
+        raise AssertionError(f"fp32 prefills launched {by_kernel}, expected {expected} all simt")
     near_ties = 0
     with torch.no_grad():
         for i, p in enumerate(prompts):
@@ -598,8 +719,8 @@ def greedy(cfg) -> dict:
                 raise AssertionError(f"request {i}: engine {done[i]} != sequential {ref}")
             near_ties += 1
     emit("greedy", requests=len(prompts), tokens_each=MAX_NEW, near_ties=near_ties,
-         identical=len(prompts) - near_ties)
-    return dict(near_ties=near_ties)
+         identical=len(prompts) - near_ties, flash_launches_by_kernel=by_kernel)
+    return dict(near_ties=near_ties, launches=by_kernel["simt"])
 
 
 # -- phase 8: train --------------------------------------------------------------
@@ -623,17 +744,18 @@ def train(cfg) -> dict:
         state = trainer.init_state()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        flash.launch_count = flash_bwd.dq_launch_count = flash_bwd.dkv_launch_count = 0
+        reset_fwd_counts()
+        flash_bwd.dq_launch_count = flash_bwd.dkv_launch_count = 0
         state = trainer.run(state)
         torch.cuda.synchronize()
-        launches = dict(flash_fwd=flash.launch_count, flash_bwd_dq=flash_bwd.dq_launch_count,
-                        flash_bwd_dkv=flash_bwd.dkv_launch_count)
+        launches = dict(flash_fwd=flash.launch_counts["sm90"], flash_fwd_simt=flash.launch_counts["simt"],
+                        flash_bwd_dq=flash_bwd.dq_launch_count, flash_bwd_dkv=flash_bwd.dkv_launch_count)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = state["losses"]
     steps = list(trainer.watchdog.durations)
     tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
     step_s = float(np.median(steps[1:]))  # the first step also warms up
-    expected = dict(flash_fwd=cfg.num_layers * 2 * TRAIN_STEPS,
+    expected = dict(flash_fwd=cfg.num_layers * 2 * TRAIN_STEPS, flash_fwd_simt=0,
                     flash_bwd_dq=cfg.num_layers * TRAIN_STEPS,
                     flash_bwd_dkv=cfg.num_layers * TRAIN_STEPS)
     emit("train", arch=cfg.name, dtype=cfg.dtype, remat=cfg.remat, batch=TRAIN_SHAPE.global_batch,
@@ -732,6 +854,29 @@ def tune() -> dict:
         raise AssertionError(f"pwl_exp2 launched {launches} times, expected {len(segments)} ({segments})")
     return dict(launches=launches, seconds=seconds)
 
+def sm90_ptxas(log: str) -> list[dict]:
+    """Registers, stack and spills of each flash_fwd_sm90_kernel<D, PWL>
+    instantiation, from ptxas -v in the build log."""
+    rows, row = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '\S*flash_fwd_sm90_kernelILi(\d+)ELb([01])E", line)
+        if entry:
+            row = dict(head_dim=int(entry.group(1)), pwl=entry.group(2) == "1")
+            rows.append(row)
+            continue
+        if row is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if frame:
+            row.update(stack=int(frame.group(1)), spill_stores=int(frame.group(2)),
+                       spill_loads=int(frame.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            row["registers"] = int(used.group(1))
+            row = None
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -749,10 +894,15 @@ def main() -> None:
     ]
     emit("build", seconds=time.perf_counter() - t0, libraries=[p.name for p in libs.values()],
          ptxas=ptxas)
+    sm90 = sm90_ptxas(libs["flash_fwd_sm90"].with_suffix(".log").read_text())
+    emit("build", flash_fwd_sm90=sm90)
+    if len(sm90) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in sm90 if r["head_dim"] == 128):
+        raise AssertionError(f"flash_fwd_sm90 instantiations missing or spilling at d = 128: {sm90}")
 
     sweep_err = check_flash_sweep()
     check_pwl_subnormal_range()
     timing = time_flash()
+    simt_timing = time_flash_simt()
     bwd_err = check_bwd_sweep()
     bwd_timing = time_bwd()
     pwl_compared, pwl_err = check_pwl()
@@ -763,7 +913,7 @@ def main() -> None:
     served = serve(cfg, params)
     del params
     torch.cuda.empty_cache()
-    greedy(dataclasses.replace(cfg, dtype="float32"))
+    greedied = greedy(dataclasses.replace(cfg, dtype="float32"))
     torch.cuda.empty_cache()
     trained = train(cfg)
     torch.cuda.empty_cache()
@@ -773,14 +923,29 @@ def main() -> None:
 
     serve_shape = next(r for r in timing if r["shape"] == [1, 2048, 16, 128])
     fwd_launches = dict(serve=served["launches"], train=trained["launches"]["flash_fwd"])
+    # The forward's two kernels, both ports of _fwd_kernel: the sm90 one on
+    # the bf16 main path (serve, train), the simt one on the fp32 greedy path.
     records = [dict(
-        name="flash_fwd", route="cuda", source="src/repro_torch/kernels/csrc/flash_fwd.cu",
+        name="flash_fwd", variant="sm90: wgmma + TMA, producer/consumer warpgroups (bf16, d 64 and 128)",
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:64",
-        launches=sum(fwd_launches.values()), launches_by_path=fwd_launches, max_abs_err=sweep_err,
-        tol={"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16]},
+        launches=sum(fwd_launches.values()), launches_by_path=fwd_launches,
+        max_abs_err=sweep_err["sm90"], max_abs_err_fp32_p=sweep_err["sm90_vs_fp32_p"],
+        tol={"bfloat16": TOL[torch.bfloat16], "bfloat16_vs_fp32_p": TOL_FP32P},
         ms=serve_shape["ms"], plain_ms=serve_shape["plain_ms"],
         bound_ms=serve_shape["bound_ms"], bound_by=serve_shape["bound_by"],
         library_ms=serve_shape["library_ms"], shape=serve_shape["shape"], by_shape=timing,
+        ptxas=sm90,
+    ), dict(
+        name="flash_fwd_simt", variant="simt: fp32 FMAs on the CUDA cores (fp32; bf16 at d 16 and 32)",
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_fwd.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:64",
+        launches=greedied["launches"], launches_by_path=dict(greedy=greedied["launches"]),
+        max_abs_err=sweep_err["simt"],
+        tol={"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16]},
+        ms=simt_timing["ms"], plain_ms=simt_timing["plain_ms"], bound_ms=simt_timing["bound_ms"],
+        bound_by=simt_timing["bound_by"], library_ms=simt_timing["library_ms"],
+        shape=simt_timing["shape"], by_shape=[simt_timing],
     )]
     # Each backward kernel is timed alone; the plain version and SDPA's
     # backward compute dQ, dK and dV together, so theirs are the whole's.

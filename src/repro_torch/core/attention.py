@@ -51,13 +51,16 @@ def algorithm1(
     scale: float,
     q_offset: int = 0,
     bias: Optional[torch.Tensor] = None,  # [Sq, Sk]
+    p_dtype: Optional[torch.dtype] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Tiled Algorithm 1 over all batches and heads at once.
 
     Returns the normalised output ``[B, H, Sq, dv]`` in fp32, the running
     max ``m`` (unscaled) and the guarded row sum ``l``, both ``[B, H, Sq]``.
     GQA folds a kv-head's ``rep`` query heads into the rows of one product,
-    so K/V are never repeated.
+    so K/V are never repeated.  With ``p_dtype`` P is rounded to it for the
+    PV product only, as a tensor-core kernel takes it; ``l`` is summed from
+    the fp32 P either way.
     """
     b, sq, h, d = q.shape
     sk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -100,6 +103,8 @@ def algorithm1(
             b_corr = exp2(c * (m - new_m))
             p = exp2(c * (s - new_m[..., None]))
             l = l * b_corr + p.sum(dim=-1)
+            if p_dtype is not None:
+                p = p.to(p_dtype).float()
             acc = b_corr[..., None] * acc + p @ v_j
             m = new_m
         # line 21: O_i = diag(l)^-1 O   (guard fully-masked rows)

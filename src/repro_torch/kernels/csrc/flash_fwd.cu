@@ -24,11 +24,12 @@
 //
 // What bounds it on the H100: at long prefill the 4 * d * S^2 / 2 causal
 // operations (compute); at short prefill reading Q, K, V and writing O
-// (bytes). This first version is plain SIMT: every product is an fp32 FMA on
-// the CUDA cores (67 TFLOP/s peak, against 989 TFLOP/s of bf16 tensor cores),
-// with no tensor cores, no TMA and no overlap of loads with compute. It
-// keeps the reference's numerics (fp32 products, P kept in fp32 for PV);
-// tensor cores would mean TF32 for fp32 inputs and P rounded to bf16.
+// (bytes). This kernel is plain SIMT: every product is an fp32 FMA on the
+// CUDA cores (67 TFLOP/s peak), with no tensor cores, no TMA and no overlap
+// of loads with compute. It keeps the reference's numerics (fp32 products,
+// P kept in fp32 for PV), and takes fp32 inputs, where tensor cores would
+// mean TF32, and bf16 at d 16 and 32. bf16 at d 64 and 128 goes to the
+// tensor-core kernel of flash_fwd_sm90.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -252,7 +253,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kWide>
 cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k,
                               const void* v, void* o, float* lse,
                               const float* table, int batch, int heads,
@@ -267,10 +268,15 @@ cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k,
   switch (head_dim) {
     case 16: REPRO_TORCH_LAUNCH(16);
     case 32: REPRO_TORCH_LAUNCH(32);
-    case 64: REPRO_TORCH_LAUNCH(64);
-    case 128: REPRO_TORCH_LAUNCH(128);
-    default: return cudaErrorInvalidValue;
+    case 64:
+      if constexpr (kWide) REPRO_TORCH_LAUNCH(64);
+      break;
+    case 128:
+      if constexpr (kWide) REPRO_TORCH_LAUNCH(128);
+      break;
+    default: break;
   }
+  return cudaErrorInvalidValue;
 #undef REPRO_TORCH_LAUNCH
 }
 
@@ -279,7 +285,8 @@ cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k,
 // C entry point, bound with ctypes. q [B, Sq, H, D], k and v [B, Sk, Hkv, D]
 // with dense inner dims and any batch stride; o [B, Sq, H, D] dense; lse
 // [B*H, Sq] fp32 or null; table [2, num_segments] fp32 (read when pwl).
-// dtype: 0 float32, 1 bfloat16. Returns a cudaError_t.
+// dtype: 0 float32 (D 16 to 128), 1 bfloat16 (D 16 or 32). Returns a
+// cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, const void* table, int dtype, int batch,
                          int heads, int kv_heads, int seq_q, int seq_k,
@@ -295,12 +302,12 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   auto* tab = static_cast<const float*>(table);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_head_dim<float>(head_dim, q, k, v, o, lse_f, tab, batch,
+    return dispatch_head_dim<float, true>(head_dim, q, k, v, o, lse_f, tab, batch,
                                     heads, kv_heads, seq_q, seq_k, q_offset,
                                     q_bstride, k_bstride, v_bstride, causal, c,
                                     pwl, num_segments, st);
   if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(
+    return dispatch_head_dim<__nv_bfloat16, false>(  // d 64, 128: flash_fwd_sm90.cu
         head_dim, q, k, v, o, lse_f, tab, batch, heads, kv_heads, seq_q, seq_k,
         q_offset, q_bstride, k_bstride, v_bstride, causal, c, pwl,
         num_segments, st);

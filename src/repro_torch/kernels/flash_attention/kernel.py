@@ -1,26 +1,41 @@
-"""Fused SystolicAttention forward: wrapper of the hand-written CUDA kernel
-``kernels/csrc/flash_fwd.cu``, the port of the Pallas TPU kernel
+"""Fused SystolicAttention forward: wrapper of the hand-written CUDA
+kernels ``kernels/csrc/flash_fwd_sm90.cu`` and ``kernels/csrc/flash_fwd.cu``,
+the ports of the Pallas TPU kernel
 ``repro.kernels.flash_attention.kernel._fwd_kernel``.
 
 ``flash_attention_fwd`` keeps the reference's signature and ``[B, S, H, d]``
-layout. A tensor on the card launches the CUDA kernel, or raises on what the
+layout. A tensor on the card launches a CUDA kernel, or raises on what the
 kernel does not take; a tensor on the CPU takes the plain version
 (``flash_attention_fwd_plain``, the tiled Algorithm 1 of
 ``repro_torch.core.attention``). Pallas's ``interpret`` has no counterpart.
 
-The CUDA kernel's tiles are fixed at ``KERNEL_BLOCK`` x ``KERNEL_BLOCK``;
-``block_q`` and ``block_k`` set the plain version's tiles. Results of two
-tilings agree to tolerance, not to the bit. With the PWL exp2 they agree
-less well: the rescale factor ``pwl(c (m_old - m_new))`` is not
-multiplicative, so where the k tiles break moves ``l`` and the LSE (by up
-to ~1e-3); the kernel is held against the plain version at its own tiling.
+The table ``KERNELS`` chooses the kernel from ``(dtype, head_dim)``; each
+``FwdKernel`` record holds what the choice implies:
+
+* ``SM90`` (``flash_fwd_sm90.cu``) for bf16 at d 64 and 128: wgmma on the
+  tensor cores, TMA loads, a producer warpgroup and two consumer
+  warpgroups, 128 x 128 tiles. P is rounded to bf16 for the PV product (l
+  and the LSE come from the fp32 P);
+* ``SIMT`` (``flash_fwd.cu``) for fp32 at d 16 to 128 and bf16 at d 16
+  and 32: fp32 FMAs on the CUDA cores, 64 x 64 tiles, P kept in fp32 (the
+  reference's numerics).
+
+Nothing falls back: a CUDA tensor the chosen kernel cannot take raises.
+The plain version mirrors the kernel that ``KERNELS`` gives its inputs: it
+rounds P to bf16 where that kernel does (``fp32_p=True`` keeps the
+reference's fp32 P). ``block_q`` and ``block_k`` set its tiles; the
+kernels' are fixed (``fwd_tile``). Results of two tilings agree to
+tolerance, not to the bit. With the PWL exp2 they agree less well: the
+rescale factor ``pwl(c (m_old - m_new))`` is not multiplicative, so where
+the k tiles break moves ``l`` and the LSE (by up to ~1e-3); on the card a
+kernel is held against the plain version at its own k tile.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,13 +46,61 @@ from repro_torch.kernels import _build
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
-KERNEL_BLOCK = 64  # kBlockQ = kBlockK in csrc/flash_fwd.cu
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Launches of the CUDA kernel in this process; callers reset and read it to
-# show that a path went through the kernel.
-launch_count = 0
+
+class FwdKernel(NamedTuple):
+    """One forward kernel: its name (the key of ``launch_counts``), its
+    library and C entry point (all take the same arguments), its q and k
+    tile (kBlockM/kBlockN of flash_fwd_sm90.cu, kBlockQ/kBlockK of
+    flash_fwd.cu), and the dtype it rounds P to for PV (None: fp32 P)."""
+
+    name: str
+    entry: str
+    tile: int
+    p_dtype: Optional[torch.dtype]
+
+
+SM90 = FwdKernel("sm90", "flash_fwd_sm90", 128, torch.bfloat16)
+SIMT = FwdKernel("simt", "flash_fwd", 64, None)
+
+# (dtype, head_dim) -> the forward kernel that takes it on the card.
+KERNELS = {
+    **{(torch.float32, d): SIMT for d in HEAD_DIMS},
+    (torch.bfloat16, 16): SIMT,
+    (torch.bfloat16, 32): SIMT,
+    (torch.bfloat16, 64): SM90,
+    (torch.bfloat16, 128): SM90,
+}
+
+# Launches in this process by kernel; callers reset and read them to show
+# that a path went through the kernels.  ``launch_count`` is their sum.
+launch_counts = {SM90.name: 0, SIMT.name: 0}
+
+
+def __getattr__(name: str):
+    if name == "launch_count":
+        return sum(launch_counts.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> FwdKernel:
+    """The kernel that ``KERNELS`` gives ``(dtype, head_dim)``; raises
+    ``ValueError`` where there is none."""
+    try:
+        return KERNELS[(dtype, head_dim)]
+    except KeyError:
+        raise ValueError(
+            f"no forward kernel for {dtype} at head_dim {head_dim} "
+            f"(fp32 or bf16, head_dim in {HEAD_DIMS})"
+        ) from None
+
+
+def fwd_tile(dtype: torch.dtype, head_dim: int) -> int:
+    """The q and k tile of the kernel that takes ``(dtype, head_dim)``: the
+    plain version's tiles when it is held against that kernel."""
+    return kernel_for(dtype, head_dim).tile
 
 
 def flash_attention_fwd(
@@ -81,12 +144,17 @@ def flash_attention_fwd(
 
 def flash_attention_fwd_plain(
     q, k, v, *, causal, scale, q_offset, block_q, block_k, exp2_impl,
-    num_segments, return_lse,
+    num_segments, return_lse, fp32_p=False,
 ):
-    """The plain PyTorch version of the kernel, on any device."""
+    """The plain PyTorch version of the kernel that ``KERNELS`` gives these
+    inputs, on any device: P rounded to bf16 for PV where that kernel
+    rounds it, unless ``fp32_p``."""
+    kernel = KERNELS.get((q.dtype, q.shape[-1]))
+    p_dtype = None if fp32_p or kernel is None else kernel.p_dtype
     o, m, l = algorithm1(
         q, k, v, causal=causal, block_q=block_q, block_k=block_k,
         exp2=_exp2_fn(exp2_impl, num_segments), scale=scale, q_offset=q_offset,
+        p_dtype=p_dtype,
     )
     out = o.permute(0, 2, 1, 3).to(q.dtype)
     if not return_lse:
@@ -103,12 +171,14 @@ def _coeff_table(num_segments: int, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """``flash_fwd.cu``'s library, built on first use, with its C signature."""
-    lib = _build.load("flash_fwd")
+def _library(name: str) -> ctypes.CDLL:
+    """The library of a kernel's entry point, built on first use, with its
+    C signature."""
+    lib = _build.load(name)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_fwd.argtypes = [p] * 6 + [i] * 7 + [ll] * 3 + [i, i, ctypes.c_float, i, i, p]
-    lib.flash_fwd.restype = ctypes.c_int
+    fn = getattr(lib, name)
+    fn.argtypes = [p] * 6 + [i] * 7 + [ll] * 3 + [i, i, ctypes.c_float, i, i, p]
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -131,22 +201,44 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
         )
 
 
+def check_tma_layout(name: str, t: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless a TMA tensor map can describe ``t``
+    (``[B, S, H, d]``): dense ``[S, H, d]`` inner dims, a 16-byte aligned
+    base, and byte strides that are multiples of 16 (the batch stride only
+    where B > 1). A prefix of a KV cache, batch stride capacity * H * d,
+    passes. Reads only shapes, strides and the address, so it runs on CPU
+    tensors too."""
+    _check_layout(name, t)
+    base = t.data_ptr()
+    if base % 16:
+        raise ValueError(f"{name}: base address {base:#x} is not 16-byte aligned (TMA)")
+    batch, _, heads, d = t.shape
+    size = t.element_size()
+    strides = {"head": d * size, "sequence": heads * d * size}
+    if batch > 1:
+        strides["batch"] = t.stride(0) * size
+    for dim, nbytes in strides.items():
+        if nbytes % 16:
+            raise ValueError(f"{name}: {dim} stride of {nbytes} bytes is not a multiple of 16 (TMA)")
+
+
 def _launch(q, k, v, *, causal, scale, q_offset, exp2_impl, num_segments, return_lse):
-    global launch_count
     batch, sq, heads, d = q.shape
     _, sk, kv_heads, _ = k.shape
-    if q.dtype not in _DTYPE_CODES or not q.dtype == k.dtype == v.dtype:
-        raise ValueError(f"kernel takes fp32 or bf16 q/k/v of one dtype: {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in HEAD_DIMS or k.shape[-1] != d or v.shape != k.shape or k.shape[0] != batch:
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v of different dtypes: {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.shape[-1] != d or v.shape != k.shape or k.shape[0] != batch:
         raise ValueError(f"unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    kernel = kernel_for(q.dtype, d)
     if sq < 1 or sk < 1 or q_offset < 0:
         raise ValueError(f"need Sq >= 1, Sk >= 1, q_offset >= 0: {sq}, {sk}, {q_offset}")
     if exp2_impl == "pwl" and not 1 <= num_segments <= 128:
         raise ValueError(f"num_segments must be in [1, 128]: {num_segments}")
+    check = check_tma_layout if kernel is SM90 else _check_layout
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_layout(name, t)
+        check(name, t)
 
-    lib = _library()
+    entry = getattr(_library(kernel.entry), kernel.entry)
     o = torch.empty((batch, sq, heads, d), dtype=q.dtype, device=q.device)
     lse = (
         torch.empty((batch * heads, sq), dtype=torch.float32, device=q.device)
@@ -155,7 +247,7 @@ def _launch(q, k, v, *, causal, scale, q_offset, exp2_impl, num_segments, return
     pwl = exp2_impl == "pwl"
     table = _coeff_table(num_segments, q.device) if pwl else None
     with torch.cuda.device(q.device):
-        err = lib.flash_fwd(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             table.data_ptr() if table is not None else None,
@@ -165,6 +257,8 @@ def _launch(q, k, v, *, causal, scale, q_offset, exp2_impl, num_segments, return
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {err}")
-    launch_count += 1
+        # flash_fwd_sm90.cu: 900, libcuda has no cuTensorMapEncodeTiled;
+        # 1000 + CUresult, libcuda refused a tensor map.
+        raise RuntimeError(f"{kernel.entry} kernel launch failed: error {err}")
+    launch_counts[kernel.name] += 1
     return (o, lse) if return_lse else o

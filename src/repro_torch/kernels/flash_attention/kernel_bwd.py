@@ -37,6 +37,8 @@ from repro_torch.core.pwl_exp2 import LOG2_E
 from repro_torch.kernels import _build
 from .kernel import DEFAULT_BLOCK_K, DEFAULT_BLOCK_Q, HEAD_DIMS, _DTYPE_CODES, _check_layout, is_dense
 
+KERNEL_BLOCK = 64  # kBlock of csrc/flash_bwd.cu: its q and k tiles
+
 # Launches of each CUDA kernel in this process; callers reset and read them
 # to show that a path went through the kernels.
 dq_launch_count = 0

@@ -36,6 +36,9 @@ BATCH, MAX_LEN, DEPTH = 4, 2048, 1024  # its engine's slots and cache, half full
 STEPS = 10  # decode steps per timed call
 REPEATS = 5
 TOP = 12  # kernels listed per phase
+# The forward kernels, by a substring of their names (kernel.KERNELS picks
+# one): the tensor-core kernel for bf16 at d 64 and 128, the SIMT one else.
+FORWARD_GROUPS = {"flash_fwd_sm90": "flash_fwd_sm90_kernel", "flash_fwd_simt": "flash_fwd_kernel"}
 
 
 def _wall_ms(fn) -> float:
@@ -108,7 +111,7 @@ def main() -> None:
         cache = init_cache(cfg, 1, BUCKET, "cuda")
         prefill_step(params, cfg, tokens, cache, [PROMPT_LEN])
 
-    report("prefill", prefill, 1, bucket=BUCKET, prompt_len=PROMPT_LEN)
+    report("prefill", prefill, 1, groups=FORWARD_GROUPS, bucket=BUCKET, prompt_len=PROMPT_LEN)
 
     cache = init_cache(cfg, BATCH, MAX_LEN, "cuda")
     cache = cache._replace(lengths=torch.full_like(cache.lengths, DEPTH))

@@ -25,11 +25,11 @@ from repro_torch.models import init_params
 from repro_torch.optim import AdamW, cosine_with_warmup
 from repro_torch.train.train_step import make_train_step, value_and_grad
 
-from .profile_serve import report
+from .profile_serve import FORWARD_GROUPS, report
 
 ARCH = "olmo-1b"
 SHAPE = ShapeConfig("profile_train", 2048, 4, "train")  # chip_smoke.py's train phase
-GROUPS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+GROUPS = {**FORWARD_GROUPS, "flash_bwd_dq": "flash_bwd_dq_kernel",
           "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
 
 

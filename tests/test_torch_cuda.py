@@ -8,7 +8,12 @@ on the same inputs at the kernel's own tiling (fp32 3e-5 for the forward
 and 1e-4 + 1e-5 relative for the backward: the order of fp32 sums, over
 more terms in dK and dV; bf16 1e-3 + 2**-7 relative: each output is
 rounded to bf16 once, and two fp32 values on either side of a rounding
-boundary land one bf16 step apart; LSE 1e-4).  The PWL exp2 kernel is held
+boundary land one bf16 step apart; LSE 1e-4).  The forward's plain version
+is the twin of the kernel that takes the inputs (``kernel.KERNELS``): the
+sm90 kernel and its twin both round P to bf16 for PV; against the fp32-P
+plain version the sm90 kernel is held to 1e-3 + 2**-8 * (the fp32-P plain
+version's output on |v|) + 2**-7 relative, the bound of P's rounding
+element by element (chip_smoke.TOL_FP32P).  The PWL exp2 kernel is held
 to its plain version bit for bit: both round the multiply and the add
 separately and the result once to the output's type.
 """
@@ -50,6 +55,11 @@ def _qkv(shape_q, shape_kv, device, dtype, seed=0):
     )
 
 
+def _fwd_tile(q):
+    """The q and k tile of the forward kernel that takes q."""
+    return flash_kernel.fwd_tile(q.dtype, q.shape[-1])
+
+
 @pytest.mark.parametrize("exp2_impl", ["exact", "pwl"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_fwd_matches_plain(cuda_device, dtype, exp2_impl):
@@ -61,7 +71,7 @@ def test_flash_fwd_matches_plain(cuda_device, dtype, exp2_impl):
     torch.cuda.synchronize()
     assert flash_kernel.launch_count == before + 1
     ref, ref_lse = flash_kernel.flash_attention_fwd_plain(
-        q, k, v, block_q=flash_kernel.KERNEL_BLOCK, block_k=flash_kernel.KERNEL_BLOCK, **kw
+        q, k, v, block_q=_fwd_tile(q), block_k=_fwd_tile(q), **kw
     )
     fp32 = dtype == torch.float32
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-5 if fp32 else 1e-3,
@@ -69,13 +79,59 @@ def test_flash_fwd_matches_plain(cuda_device, dtype, exp2_impl):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "dtype", "layout"])
+# (B, Sq, Sk, H, Hkv, d, causal, q_offset, exp2, segments, kv capacity)
+SM90_CASES = [
+    (1, 256, 256, 8, 2, 64, True, 0, "exact", 8, None),
+    (2, 1, 17, 8, 2, 64, True, 16, "exact", 8, None),
+    (1, 17, 200, 4, 4, 128, True, 183, "pwl", 4, None),
+    (1, 200, 1000, 16, 16, 128, True, 800, "exact", 8, None),
+    (2, 300, 700, 8, 2, 128, True, 400, "exact", 8, 1024),
+    (3, 1000, 1000, 4, 4, 128, True, 0, "pwl", 8, None),
+    (2, 200, 1000, 4, 4, 128, False, 0, "exact", 8, None),
+    # The main path's shapes: training (with LSE), and a prefill chunk at
+    # q_offset 1024 in a 2048-slot cache.
+    (4, 2048, 2048, 16, 16, 128, True, 0, "exact", 8, None),
+    (1, 512, 1536, 16, 16, 128, True, 1024, "exact", 8, 2048),
+]
+
+
+@pytest.mark.parametrize("case", SM90_CASES)
+def test_flash_fwd_sm90_matches_plain(cuda_device, case):
+    """The tensor-core kernel against its twin (P rounded to bf16 as it
+    rounds it) at one bf16 step, against the fp32-P plain version within
+    the bound of that rounding; the LSE against both at 1e-4."""
+    b, sq, sk, h, hkv, d, causal, q_offset, exp2_impl, segments, capacity = case
+    q, k, v = _qkv((b, sq, h, d), (b, capacity or sk, hkv, d), cuda_device, torch.bfloat16)
+    k, v = k[:, :sk], v[:, :sk]  # with a capacity: a prefix of a KV cache
+    kw = dict(causal=causal, scale=d ** -0.5, q_offset=q_offset, exp2_impl=exp2_impl,
+              num_segments=segments, return_lse=True)
+    before = dict(flash_kernel.launch_counts)
+    out, lse = flash_kernel.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_kernel.launch_counts == dict(before, sm90=before["sm90"] + 1)
+    tile = flash_kernel.SM90.tile
+    ref, ref_lse = flash_kernel.flash_attention_fwd_plain(q, k, v, block_q=tile, block_k=tile, **kw)
+    ref32, ref32_lse = flash_kernel.flash_attention_fwd_plain(
+        q, k, v, block_q=tile, block_k=tile, fp32_p=True, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-3, rtol=2.0 ** -7)
+    weighted_abs_v = flash_kernel.flash_attention_fwd_plain(
+        q, k, v.abs(), block_q=tile, block_k=tile, fp32_p=True, **dict(kw, return_lse=False))
+    bound = 1e-3 + 2.0 ** -8 * weighted_abs_v.float() + 2.0 ** -7 * ref32.float().abs()
+    assert bool(((out.float() - ref32.float()).abs() <= bound).all())
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, ref32_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "layout", "tma_batch_stride"])
 def test_flash_fwd_refuses_what_it_cannot_take(cuda_device, bad):
     d = 48 if bad == "head_dim" else 64
-    dtype = torch.float16 if bad == "dtype" else torch.float32
+    dtype = {"dtype": torch.float16, "tma_batch_stride": torch.bfloat16}.get(bad, torch.float32)
     q, k, v = _qkv((1, 64, 2, d), (1, 64, 2, d), cuda_device, dtype)
     if bad == "layout":
         q = q.transpose(1, 2).contiguous().transpose(1, 2)  # [B, S, H, d] view of [B, H, S, d]
+    if bad == "tma_batch_stride":  # dense inner dims, a batch stride of 8 bytes past 16
+        buf = torch.zeros(2 * 64 * 2 * d + 4, device=cuda_device, dtype=dtype)
+        q = k = v = torch.as_strided(buf, (2, 64, 2, d), (64 * 2 * d + 4, 2 * d, d, 1))
     before = flash_kernel.launch_count
     with pytest.raises(ValueError):
         flash_kernel.flash_attention_fwd(q, k, v, causal=True)
@@ -84,7 +140,7 @@ def test_flash_fwd_refuses_what_it_cannot_take(cuda_device, bad):
 
 def test_engine_prefill_goes_through_the_kernel(cuda_device):
     """Greedy serving on the card: one launch per layer per prefill, and the
-    tokens of sequential decode."""
+    tokens of sequential decode (fp32 at d 16: the simt kernel)."""
     cfg = get_smoke_config("olmo-1b")
     params = init_params(cfg, 0, device=cuda_device)
     rng = np.random.default_rng(0)
@@ -97,6 +153,23 @@ def test_engine_prefill_goes_through_the_kernel(cuda_device):
     assert flash_kernel.launch_count - before == cfg.num_layers * len(prompts)
     for i, p in enumerate(prompts):
         assert done[i] == sequential_greedy_decode(cfg, params, p, 6, max_len=64)
+
+
+def test_engine_bf16_prefill_takes_only_the_sm90_kernel(cuda_device):
+    """The smoke model in bf16 at head width 64: every prefill launch goes to
+    the tensor-core kernel, none to the simt one."""
+    cfg = dataclasses.replace(get_smoke_config("olmo-1b"), d_model=256, head_dim=64, dtype="bfloat16")
+    params = init_params(cfg, 0, device=cuda_device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 130, 40)]
+    engine = ServeEngine(cfg, params, batch_size=2, max_len=256, device=cuda_device)
+    for i, p in enumerate(prompts):
+        engine.submit(Request(rid=i, prompt=p, max_new_tokens=4))
+    before = dict(flash_kernel.launch_counts)
+    done = engine.run()
+    assert len(done) == len(prompts)
+    assert flash_kernel.launch_counts == dict(
+        sm90=before["sm90"] + cfg.num_layers * len(prompts), simt=before["simt"])
 
 
 def _counts():
@@ -122,7 +195,7 @@ def test_flash_bwd_matches_plain(cuda_device, dtype, exp2_impl):
     torch.cuda.synchronize()
     assert _counts() == (before[0], before[1] + 1, before[2] + 1)
     ref = kernel_bwd.flash_attention_bwd_plain(
-        q, k, v, out, lse, do, block_q=flash_kernel.KERNEL_BLOCK, block_k=flash_kernel.KERNEL_BLOCK, **kw
+        q, k, v, out, lse, do, block_q=kernel_bwd.KERNEL_BLOCK, block_k=kernel_bwd.KERNEL_BLOCK, **kw
     )
     for g, r in zip(got, ref):
         assert g.dtype == dtype
@@ -154,7 +227,7 @@ def test_autograd_on_the_card_takes_a_non_dense_grad(cuda_device):
         o, lse = flash_kernel.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
         ref = kernel_bwd.flash_attention_bwd_plain(
             q, k, v, o, lse, torch.ones_like(o), causal=True, scale=64 ** -0.5, q_offset=0,
-            block_q=flash_kernel.KERNEL_BLOCK, block_k=flash_kernel.KERNEL_BLOCK,
+            block_q=kernel_bwd.KERNEL_BLOCK, block_k=kernel_bwd.KERNEL_BLOCK,
         )
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, **_bwd_tol(torch.float32))
