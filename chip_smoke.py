@@ -7,11 +7,12 @@ non-zero):
 
   1. device  — a CUDA card must be present; its name and power limit
                (nvidia-smi) and the torch/CUDA versions.
-  2. build   — nvcc builds every kernel (the two forwards, backward, PWL
-               exp2) from the sources in this checkout (sm_90a), one
-               process per source, all started together; ptxas's registers
-               and spills of each tensor-core forward instantiation (none may
-               spill at d = 128).
+  2. build   — nvcc builds every kernel (the two forwards, the two
+               backward pairs, PWL exp2) from the sources in this checkout
+               (sm_90a), one process per source, all started together;
+               ptxas's registers and spills of each tensor-core
+               instantiation (the forward may not spill at d = 128, the
+               backward pair not at all).
   3. kernels — the forward kernels against their plain PyTorch version on
                the card over a sweep (fp32/bf16, d 16 to 128, causal or not,
                GQA, ragged Sq and Sk, q_offset > 0, exact/PWL exp2 with K 8
@@ -28,9 +29,20 @@ non-zero):
                the port never calls it) and the card's bound.
   4. kernels_bwd — the dQ and dK/dV kernels against the plain FA-2 version
                over a sweep (fp32/bf16, causal or not, GQA rep 2 and 4,
-               ragged S, q_offset > 0, an LSE from a PWL forward, d 16 to
-               128, the training shape), then timed at the training shape
-               beside the plain version, SDPA's backward and the bound.
+               ragged S, q_offset > 0, an LSE from a PWL forward, B = 3, d 16
+               to 128, the training shape); the pair that takes each case
+               (kernel_bwd.BWD_KERNELS: "sm90" for bf16 at d 64 and 128,
+               "simt" otherwise) must launch once per kernel and is held
+               against the plain version that rounds P and dS as it does
+               (the sm90 pair with the bound of roundings that fall apart,
+               TOL_BWD_FLIPS), and the sm90 pair also against the fp32-P
+               plain version within the bound of that rounding
+               (TOL_BWD_FP32P beside kernel_bwd.departure_bound, element by
+               element).  Then the
+               sm90 pair is timed at the training shape and the simt pair
+               at the fp32 gradient check's, each kernel alone and the
+               whole, in event and device time, beside the plain version,
+               SDPA's backward and the bound.
   5. kernels_pwl — the standalone PWL exp2 kernel against its plain version,
                bit for bit, in fp32, bf16 and fp16 for K in {2, ..., 64}
                (inputs down to the fp32 underflow, 0, -0, -inf, NaN; a
@@ -53,10 +65,14 @@ non-zero):
                trained by the port's Trainer for 6 steps at batch 4 x 2048
                of SyntheticLM(seed=0); the launch counts are reset before
                and read after (forward, all sm90: layers x 2 x steps, with
-               the remat recompute; dQ and dK/dV: layers x steps); the loss must be
-               finite at every step and lower at the last than at the first.
+               the remat recompute; dQ and dK/dV, all sm90: layers x steps);
+               the loss must be finite at every step and lower at the last
+               than at the first.
   9. grads   — one batch's gradients at full width and depth 2, kernel path
-               against the naive-attention path, in fp32 and in bf16.
+               against the naive-attention path, in fp32 (the simt
+               backward pair) and in bf16 (the sm90 pair), one launch of
+               each kernel of the pair per layer (counts reset before, read
+               after).
  10. tune    — the FSA design-space autotuner (repro_torch.tune) on the
                card: the "paper" preset at the launcher's defaults and the
                "full" preset (320 points); the caches are cleared and the
@@ -131,9 +147,9 @@ TOL_LSE = 1e-4
 TOL_FP32P = (1e-3, 2.0 ** -8, 2.0 ** -7)  # (atol, of weighted |v|, rtol)
 # The plain version runs at the kernel's tiles (flash.fwd_tile): with the
 # PWL exp2 the LSE depends on where the k tiles break (see kernel.py); the
-# backward kernels have their own.
+# backward pairs have their own (flash_bwd.bwd_tile).
 fwd_tile = flash.fwd_tile
-BWD_TILE = flash_bwd.KERNEL_BLOCK
+bwd_tile = flash_bwd.bwd_tile
 # Prefill logits, kernel path vs naive path, both bf16: relative to the
 # largest logit.  Each of the 16 layers rounds the residual stream to bf16
 # (2**-9 relative) a few times; 5e-2 is ~25 such roundings.
@@ -397,9 +413,26 @@ def time_flash_simt() -> dict:
 # Backward kernels vs the plain version on the same inputs, as (atol, rtol).
 # fp32: only the order of the fp32 sums differs, over up to Sq * rep terms
 # for dK and dV (3200 here), so a little above the forward's 3e-5.  bf16:
-# both compute in fp32 and round each gradient to bf16 once: one bf16
-# step, as the forward's TOL, with 1e-3 for values near zero.
+# both compute in fp32 (the sm90 pair and its plain twin both round P and
+# dS to bf16 as product operands) and round each gradient to bf16 once:
+# one bf16 step, as the forward's TOL, with 1e-3 for values near zero.
 TOL_BWD = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-3, 2.0 ** -7)}
+# The sm90 pair vs the fp32-P plain version (the reference's numerics):
+# rounding P and dS to bf16 moves each by at most 2**-8 of itself, so dQ,
+# dK and dV move by at most flash_bwd.departure_bound (2**-8 times |dS| |K|,
+# |dS|^T |Q| and P^T |dO|, element by element); both sides then round the
+# gradient to bf16 (one step, 2**-7 of the value), and 1e-3 covers values
+# near zero: |kernel - plain| <= 1e-3 + departure_bound + 2**-7 |plain|.
+TOL_BWD_FP32P = (1e-3, 2.0 ** -7)  # (atol, rtol) beside departure_bound
+# The sm90 pair vs its twin: both round P and dS to bf16, but from fp32
+# values whose sums (S, dP, delta) run in other orders; where the two fp32
+# values lie on either side of a bf16 rounding point, the operand rounds to
+# neighbouring bf16 values, one ulp (at most 2**-7 of itself) apart.  Each
+# gradient then moves by at most 2**-7 times |dS| |K|, |dS|^T |Q| or
+# P^T |dO|: twice departure_bound, beside TOL_BWD's one bf16 step.  One
+# step alone was exceeded at the training shape (dK used 1.09 of it; a
+# first chip run of this check), where 2048 q rows add such flips up.
+TOL_BWD_FLIPS = 2.0  # times departure_bound, beside TOL_BWD[torch.bfloat16]
 
 # (B, Sq, Sk, H, Hkv, d, causal, q_offset, dtype, exp2 of the forward)
 BWD_SWEEP = [
@@ -410,8 +443,17 @@ BWD_SWEEP = [
     (2, 200, 700, 4, 2, 64, True, 500, torch.float32, "pwl"),
     (2, 64, 64, 8, 2, 16, False, 0, torch.bfloat16, "exact"),
     (1, 77, 130, 8, 4, 32, False, 0, torch.bfloat16, "exact"),
+    # The sm90 pair (bf16, d 64 and 128): d 64 with GQA rep 4; Sq and Sk
+    # off the 64- and 128-row tiles; q_offset off the tile; the LSE of a PWL
+    # forward; B = 3; not causal.
+    (1, 256, 256, 8, 2, 64, True, 0, torch.bfloat16, "exact"),
+    (2, 100, 200, 4, 2, 64, True, 100, torch.bfloat16, "exact"),
+    (1, 17, 300, 8, 2, 64, True, 283, torch.bfloat16, "pwl"),
+    (1, 1000, 1000, 8, 2, 64, True, 0, torch.bfloat16, "exact"),
     (1, 300, 812, 16, 16, 128, True, 512, torch.bfloat16, "exact"),
     (1, 512, 512, 16, 16, 128, True, 0, torch.bfloat16, "pwl"),
+    (3, 1000, 1000, 16, 16, 128, True, 0, torch.bfloat16, "pwl"),
+    (2, 200, 1000, 4, 4, 128, False, 0, torch.bfloat16, "exact"),
     (4, 2048, 2048, 16, 16, 128, True, 0, torch.bfloat16, "exact"),  # training shape
 ]
 
@@ -428,25 +470,70 @@ def _bwd_inputs(case, gen):
     return (q, k, v, out, lse, do), kw
 
 
+def reset_bwd_counts() -> None:
+    for entry in flash_bwd.launch_counts:
+        flash_bwd.launch_counts[entry] = 0
+
+
+def _bwd_twin_err(got, ref, bound):
+    """Largest |sm90 kernel - twin|, and the largest share an element uses
+    of TOL_BWD alone and of TOL_BWD beside TOL_BWD_FLIPS x departure_bound."""
+    atol, rtol = TOL_BWD[torch.bfloat16]
+    err = (got.float() - ref.float()).abs()
+    step = atol + rtol * ref.float().abs()
+    return float(err.max()), float((err / step).max()), float((err / (step + TOL_BWD_FLIPS * bound)).max())
+
+
+def _bwd_fp32_p_err(got, ref32, bound):
+    """Largest |kernel - fp32-P plain| and the largest share of its bound
+    (TOL_BWD_FP32P beside departure_bound) an element uses."""
+    atol, rtol = TOL_BWD_FP32P
+    err = (got.float() - ref32.float()).abs()
+    tol = atol + bound + rtol * ref32.float().abs()
+    return float(err.max()), float((err / tol).max())
+
+
 def check_bwd_sweep() -> dict:
-    """Largest |kernel - plain| of dQ, and of dK and dV, over the sweep."""
+    """Largest |kernel - plain| of dQ, and of dK and dV, over the sweep, by
+    pair (and, for sm90, against the fp32-P plain version)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = {"dq": 0.0, "dkv": 0.0}
+    worst = {(pair, key): 0.0 for pair in ("sm90", "simt") for key in ("dq", "dkv", "dq_fp32_p", "dkv_fp32_p")}
     for case in BWD_SWEEP:
         args, kw = _bwd_inputs(case, gen)
+        pair = flash_bwd.bwd_kernel_for(args[0].dtype, args[0].shape[-1])
+        tile = bwd_tile(args[0].dtype, args[0].shape[-1])
+        before = dict(flash_bwd.launch_counts)
         got = flash_bwd.flash_attention_bwd(*args, **kw)
-        ref = flash_bwd.flash_attention_bwd_plain(*args, block_q=BWD_TILE, block_k=BWD_TILE, **kw)
+        ref = flash_bwd.flash_attention_bwd_plain(*args, block_q=tile, block_k=tile, **kw)
+        if pair is flash_bwd.SM90:
+            ref32 = flash_bwd.flash_attention_bwd_plain(*args, block_q=tile, block_k=tile, fp32_p=True, **kw)
+            bounds = flash_bwd.departure_bound(*args, block_q=tile, block_k=tile, **kw)
         torch.cuda.synchronize()
+        launched = {e: n - before[e] for e, n in flash_bwd.launch_counts.items()}
+        if launched != {e: int(e in pair.entries) for e in launched}:
+            raise AssertionError(f"{case} did not launch the {pair.name} pair once: {launched}")
         errs = {}
-        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
-            err, used = _max_err(g, r, case[8], TOL_BWD)
-            errs[name] = dict(max_abs_err=err, tol_used=used)
+        for i, (name, g, r) in enumerate(zip(("dq", "dk", "dv"), got, ref)):
+            if pair is flash_bwd.SM90:
+                err, one_step, used = _bwd_twin_err(g, r, bounds[i])
+                errs[name] = dict(max_abs_err=err, tol_used=used, tol_used_one_step=one_step)
+            else:
+                err, used = _max_err(g, r, case[8], TOL_BWD)
+                errs[name] = dict(max_abs_err=err, tol_used=used)
             if not used <= 1.0 or not torch.isfinite(g.float()).all():
                 raise AssertionError(f"flash_bwd {name} vs plain mismatch ({err}, tol_used {used}) for {case}")
-        worst["dq"] = max(worst["dq"], errs["dq"]["max_abs_err"])
-        worst["dkv"] = max(worst["dkv"], errs["dk"]["max_abs_err"], errs["dv"]["max_abs_err"])
-        emit("kernels_bwd", case=str(case[:8] + (str(case[8]), case[9])),
-             tol=TOL_BWD[case[8]], **errs)
+            key = "dq" if name == "dq" else "dkv"
+            worst[pair.name, key] = max(worst[pair.name, key], err)
+            if pair is flash_bwd.SM90:
+                err32, used32 = _bwd_fp32_p_err(g, ref32[i], bounds[i])
+                errs[name].update(max_abs_err_fp32_p=err32, tol_used_fp32_p=used32)
+                if not used32 <= 1.0:
+                    raise AssertionError(
+                        f"sm90 {name} vs fp32-P plain beyond its bound ({err32}, {used32}) for {case}")
+                worst[pair.name, key + "_fp32_p"] = max(worst[pair.name, key + "_fp32_p"], err32)
+        sm90_tols = {"tol_flips": TOL_BWD_FLIPS, "tol_fp32_p": TOL_BWD_FP32P}
+        emit("kernels_bwd", case=str(case[:8] + (str(case[8]), case[9])), kernel=pair.name,
+             tol=TOL_BWD[case[8]], **(sm90_tols if pair is flash_bwd.SM90 else {}), **errs)
     return worst
 
 
@@ -461,45 +548,62 @@ def _bwd_cost(b, s, h, hkv, d, itemsize, products, q_sized, kv_sized):
     return flops, nbytes
 
 
-def time_bwd() -> dict:
-    """The backward at the training shape: each kernel alone, the whole
-    (delta + dQ + dK/dV), the plain version and SDPA's backward."""
-    case = BWD_SWEEP[-1]
+def _time_bwd_shape(case, peak_flops, plain_iters, gen) -> dict:
+    """One causal backward shape: each kernel of its pair alone, the whole
+    (dQ with delta, then dK/dV), the plain version, SDPA's backward and the
+    bound; event and device (profiler) times, achieved TFLOP/s and the share
+    of the bound, both on the device's clock."""
     b, s, _, h, hkv, d = case[:6]
-    gen = torch.Generator(device="cuda").manual_seed(3)
     (q, k, v, out, lse, do), kw = _bwd_inputs(case, gen)
-    whole_ms = cuda_ms(lambda: flash_bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw))
+    pair = flash_bwd.bwd_kernel_for(q.dtype, d)
+    tile = bwd_tile(q.dtype, d)
+    whole = lambda: flash_bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw)  # noqa: E731
     plain_ms = cuda_ms(lambda: flash_bwd.flash_attention_bwd_plain(
-        q, k, v, out, lse, do, block_q=BWD_TILE, block_k=BWD_TILE, **kw), iters=3, warmup=1)
+        q, k, v, out, lse, do, block_q=tile, block_k=tile, **kw), iters=plain_iters, warmup=1)
 
-    # Each kernel alone, on the wrapper's buffers.
-    lib = flash_bwd._library()
-    delta = torch.empty((b * h, s), dtype=torch.float32, device="cuda")
+    # Each kernel alone, on buffers laid out as the wrapper lays them out.
+    delta, lse_dkv = flash_bwd._row_stats(pair, lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     common = (flash._DTYPE_CODES[q.dtype], b, h, hkv, s, s, d)
-    c, stream = kw["scale"] * LOG2_E, torch.cuda.current_stream().cuda_stream
-    extra = (0, True, c, kw["scale"], stream)
-    dq_ms = cuda_ms(lambda: flash_bwd._launch_dq(lib, q, k, v, out, do, lse, delta, dq, common, *extra))
-    dkv_ms = cuda_ms(lambda: flash_bwd._launch_dkv(lib, q, k, v, do, lse, delta, dk, dv, common, *extra))
+    extra = (0, True, kw["scale"] * LOG2_E, kw["scale"], torch.cuda.current_stream().cuda_stream)
+    run_dq = lambda: flash_bwd._launch_dq(pair, q, k, v, out, do, lse, delta, dq, common, *extra)  # noqa: E731
+    run_dkv = lambda: flash_bwd._launch_dkv(pair, q, k, v, do, lse_dkv, delta, dk, dv, common, *extra)  # noqa: E731
 
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
-    sdpa_ms = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
+    sdpa = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
+    library_ms, library_device_ms = cuda_ms(sdpa), profiled_ms(sdpa)
 
     rows = {}
     # dQ: S, dP, dQ from q, k, v, o, dO, LSE into dQ and delta.  dK/dV: S,
     # dP, dV, dK from q, k, v, dO, LSE, delta.  Whole: five products (S and
     # dP once), q, k, v, o, dO, LSE, delta in and dQ, dK, dV out.
-    work = (("dq", dq_ms, (3, 4, 2)), ("dkv", dkv_ms, (4, 2, 4)), ("whole", whole_ms, (5, 4, 4)))
-    for name, ms, (products, q_sized, kv_sized) in work:
-        flops, nbytes = _bwd_cost(b, s, h, hkv, d, 2, products, q_sized, kv_sized)
-        bound_ms, bound_by = _bound(flops, nbytes)
-        rows[name] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
-    timing = dict(shape=[b, s, h, d], dtype="bfloat16", causal=True, plain_ms=plain_ms,
-                  library_ms=sdpa_ms, **rows)
+    work = (("dq", run_dq, (3, 4, 2)), ("dkv", run_dkv, (4, 2, 4)), ("whole", whole, (5, 4, 4)))
+    for name, fn, (products, q_sized, kv_sized) in work:
+        ms, device_ms = cuda_ms(fn), profiled_ms(fn)
+        flops, nbytes = _bwd_cost(b, s, h, hkv, d, q.element_size(), products, q_sized, kv_sized)
+        bound_ms, bound_by = _bound(flops, nbytes, peak_flops)
+        rows[name] = dict(ms=ms, device_ms=device_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                          bytes=nbytes, device_tflops=flops / device_ms / 1e9,
+                          device_share_of_bound=bound_ms / device_ms)
+    rows["whole"].update(vs_library=rows["whole"]["ms"] / library_ms,
+                         device_vs_library=rows["whole"]["device_ms"] / library_device_ms)
+    timing = dict(kernel=pair.name, shape=[b, s, h, d], dtype=str(q.dtype).split(".")[1], causal=True,
+                  plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_device_ms, **rows)
     emit("kernels_bwd", timing=timing)
     return timing
+
+
+def time_bwd() -> dict:
+    """The sm90 pair at the training shape (bf16, the last sweep case; the
+    plain version is slow, so 3 timings) and the simt pair at the fp32
+    gradient phase's shape (bound by the CUDA cores' fp32 rate; SDPA in
+    fp32 as the yardstick)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    simt_case = (GRADS_BATCH, GRADS_SEQ, GRADS_SEQ, 16, 16, 128, True, 0, torch.float32, "exact")
+    return dict(sm90=_time_bwd_shape(BWD_SWEEP[-1], PEAK_BF16_FLOPS, 3, gen),
+                simt=_time_bwd_shape(simt_case, PEAK_FP32_FLOPS, 3, gen))
 
 
 # -- phase 5: the standalone PWL exp2 kernel ----------------------------------------
@@ -745,19 +849,19 @@ def train(cfg) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_fwd_counts()
-        flash_bwd.dq_launch_count = flash_bwd.dkv_launch_count = 0
+        reset_bwd_counts()
         state = trainer.run(state)
         torch.cuda.synchronize()
         launches = dict(flash_fwd=flash.launch_counts["sm90"], flash_fwd_simt=flash.launch_counts["simt"],
-                        flash_bwd_dq=flash_bwd.dq_launch_count, flash_bwd_dkv=flash_bwd.dkv_launch_count)
+                        **flash_bwd.launch_counts)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = state["losses"]
     steps = list(trainer.watchdog.durations)
     tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
     step_s = float(np.median(steps[1:]))  # the first step also warms up
     expected = dict(flash_fwd=cfg.num_layers * 2 * TRAIN_STEPS, flash_fwd_simt=0,
-                    flash_bwd_dq=cfg.num_layers * TRAIN_STEPS,
-                    flash_bwd_dkv=cfg.num_layers * TRAIN_STEPS)
+                    flash_bwd_sm90_dq=cfg.num_layers * TRAIN_STEPS,
+                    flash_bwd_sm90_dkv=cfg.num_layers * TRAIN_STEPS, flash_bwd_dq=0, flash_bwd_dkv=0)
     emit("train", arch=cfg.name, dtype=cfg.dtype, remat=cfg.remat, batch=TRAIN_SHAPE.global_batch,
          seq=TRAIN_SHAPE.seq_len, losses=losses, step_seconds=steps, step_s_median=step_s,
          tokens_per_s=tokens / step_s, max_memory_allocated_gb=peak_gb,
@@ -785,25 +889,37 @@ TOL_GRADS = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 def grads(cfg) -> dict:
-    worst = {}
+    """Largest relative gradient error by dtype, and the backward launches
+    of each kernel path (fp32: the simt pair; bf16: the sm90 pair, one
+    launch of each kernel per layer)."""
+    worst, launches = {}, {}
     for dtype, tol in TOL_GRADS.items():
         small = dataclasses.replace(cfg, num_layers=GRADS_DEPTH, dtype=dtype)
         params = init_params(small, seed=2, device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(2)
         toks = torch.randint(0, small.vocab_size, (GRADS_BATCH, GRADS_SEQ + 1), generator=gen, device="cuda")
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        torch.cuda.synchronize()
+        reset_bwd_counts()
         loss, got = value_and_grad(small, params, batch)
+        torch.cuda.synchronize()
+        launches[dtype] = dict(flash_bwd.launch_counts)
+        pair = flash_bwd.bwd_kernel_for(small.activation_dtype, small.resolved_head_dim)
+        expected = {e: GRADS_DEPTH * (e in pair.entries) for e in flash_bwd.launch_counts}
+        if launches[dtype] != expected:
+            raise AssertionError(f"{dtype} gradients launched {launches[dtype]}, expected {expected}")
         ref_loss, ref = value_and_grad(dataclasses.replace(small, attention_impl="naive"), params, batch)
         rel = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
                   for a, b in zip(tree_leaves(got), tree_leaves(ref)))
         emit("grads", dtype=dtype, depth=GRADS_DEPTH, batch=GRADS_BATCH, seq=GRADS_SEQ,
-             loss=float(loss), naive_loss=float(ref_loss), max_rel_err=rel, tol=tol)
+             loss=float(loss), naive_loss=float(ref_loss), max_rel_err=rel, tol=tol,
+             bwd_launches=launches[dtype])
         if not rel <= tol or not math.isfinite(float(loss)):
             raise AssertionError(f"{dtype} gradients differ from the naive path: {rel} > {tol}")
         worst[dtype] = rel
         del params, got, ref
         torch.cuda.empty_cache()
-    return worst
+    return dict(worst=worst, launches=launches)
 
 
 # -- phase 10: the autotuner ------------------------------------------------------------
@@ -854,14 +970,21 @@ def tune() -> dict:
         raise AssertionError(f"pwl_exp2 launched {launches} times, expected {len(segments)} ({segments})")
     return dict(launches=launches, seconds=seconds)
 
+SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel")
+
+
 def sm90_ptxas(log: str) -> list[dict]:
-    """Registers, stack and spills of each flash_fwd_sm90_kernel<D, PWL>
-    instantiation, from ptxas -v in the build log."""
+    """Registers, stack and spills of each tensor-core kernel instantiation
+    (flash_fwd_sm90_kernel<D, PWL>, flash_bwd_sm90_{dq,dkv}_kernel<D>), from
+    ptxas -v in a build log."""
     rows, row = [], None
+    names = "|".join(SM90_KERNELS)
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '\S*flash_fwd_sm90_kernelILi(\d+)ELb([01])E", line)
+        entry = re.search(rf"Compiling entry function '\S*({names})ILi(\d+)E(?:Lb([01])E)?", line)
         if entry:
-            row = dict(head_dim=int(entry.group(1)), pwl=entry.group(2) == "1")
+            row = dict(kernel=entry.group(1), head_dim=int(entry.group(2)))
+            if entry.group(3) is not None:
+                row["pwl"] = entry.group(3) == "1"
             rows.append(row)
             continue
         if row is None:
@@ -895,9 +1018,12 @@ def main() -> None:
     emit("build", seconds=time.perf_counter() - t0, libraries=[p.name for p in libs.values()],
          ptxas=ptxas)
     sm90 = sm90_ptxas(libs["flash_fwd_sm90"].with_suffix(".log").read_text())
-    emit("build", flash_fwd_sm90=sm90)
+    sm90_bwd = sm90_ptxas(libs["flash_bwd_sm90"].with_suffix(".log").read_text())
+    emit("build", flash_fwd_sm90=sm90, flash_bwd_sm90=sm90_bwd)
     if len(sm90) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in sm90 if r["head_dim"] == 128):
         raise AssertionError(f"flash_fwd_sm90 instantiations missing or spilling at d = 128: {sm90}")
+    if len(sm90_bwd) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in sm90_bwd):
+        raise AssertionError(f"flash_bwd_sm90 instantiations missing or spilling: {sm90_bwd}")
 
     sweep_err = check_flash_sweep()
     check_pwl_subnormal_range()
@@ -917,7 +1043,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     trained = train(cfg)
     torch.cuda.empty_cache()
-    grads(cfg)
+    graded = grads(cfg)
     torch.cuda.empty_cache()
     tuned = tune()
 
@@ -949,18 +1075,37 @@ def main() -> None:
     )]
     # Each backward kernel is timed alone; the plain version and SDPA's
     # backward compute dQ, dK and dV together, so theirs are the whole's.
-    for name, key, line in (("flash_bwd_dq", "dq", 48), ("flash_bwd_dkv", "dkv", 81)):
-        row = bwd_timing[key]
-        records.append(dict(
-            name=name, route="cuda", source="src/repro_torch/kernels/csrc/flash_bwd.cu",
-            replaces=f"src/repro/kernels/flash_attention/kernel_bwd.py:{line}",
-            launches=trained["launches"][name], launches_by_path=dict(train=trained["launches"][name]),
-            max_abs_err=bwd_err[key],
-            tol={"float32": TOL_BWD[torch.float32], "bfloat16": TOL_BWD[torch.bfloat16]},
-            ms=row["ms"], plain_ms=bwd_timing["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=bwd_timing["library_ms"],
-            shape=bwd_timing["shape"], whole_backward=bwd_timing["whole"],
-        ))
+    # The sm90 pair runs on the bf16 main path (train; the bf16 gradient
+    # check), the simt pair on the fp32 gradient check.
+    bwd_pairs = (
+        ("", flash_bwd.SM90, "sm90: wgmma + TMA, producer/consumer warpgroups (bf16, d 64 and 128)",
+         "flash_bwd_sm90.cu", dict(train=trained["launches"], grads_bfloat16=graded["launches"]["bfloat16"]),
+         {"bfloat16": TOL_BWD[torch.bfloat16], "bfloat16_flips": TOL_BWD_FLIPS,
+          "bfloat16_vs_fp32_p": TOL_BWD_FP32P}),
+        ("_simt", flash_bwd.SIMT, "simt: fp32 FMAs on the CUDA cores (fp32; bf16 at d 16 and 32)",
+         "flash_bwd.cu", dict(grads_float32=graded["launches"]["float32"]),
+         {"float32": TOL_BWD[torch.float32], "bfloat16": TOL_BWD[torch.bfloat16]}),
+    )
+    for suffix, pair, variant, source, by_path, tol in bwd_pairs:
+        timing = bwd_timing[pair.name]
+        for key, entry, line in (("dq", pair.entries[0], 48), ("dkv", pair.entries[1], 81)):
+            row = timing[key]
+            launches_by_path = {path: counts[entry] for path, counts in by_path.items()}
+            extra = ({"max_abs_err_fp32_p": bwd_err[pair.name, key + "_fp32_p"]}
+                     if pair is flash_bwd.SM90 else {})
+            records.append(dict(
+                name=f"flash_bwd_{key}{suffix}", variant=variant, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{source}",
+                replaces=f"src/repro/kernels/flash_attention/kernel_bwd.py:{line}",
+                launches=next(iter(launches_by_path.values())), launches_by_path=launches_by_path,
+                max_abs_err=bwd_err[pair.name, key], **extra, tol=tol,
+                ms=row["ms"], device_ms=row["device_ms"], plain_ms=timing["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=timing["library_ms"],
+                library_device_ms=timing["library_device_ms"], shape=timing["shape"],
+                dtype=timing["dtype"], whole_backward=timing["whole"],
+                **({"ptxas": [r for r in sm90_bwd if r["kernel"] == f"{entry}_kernel"]}
+                   if pair is flash_bwd.SM90 else {}),
+            ))
     path_size = next(r for r in pwl_timing if r["elements"] == PWL_SIZES[0])
     records.append(dict(
         name="pwl_exp2", route="cuda", source="src/repro_torch/kernels/csrc/pwl_exp2.cu",

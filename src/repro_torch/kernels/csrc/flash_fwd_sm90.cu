@@ -65,12 +65,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <cstdint>
 
 #include "pwl_exp2.cuh"
+#include "sm90.cuh"  // mbarriers, TMA, wgmma, tensor maps
 
 namespace {
+
+using namespace repro_torch::sm90;
 
 constexpr int kBlockM = 128;  // q rows per CTA
 constexpr int kBlockN = 128;  // keys per k tile
@@ -78,7 +80,6 @@ constexpr int kStages = 2;    // K/V ring
 constexpr int kConsumers = 2;  // warpgroups of 64 q rows
 constexpr int kThreads = 128 * (1 + kConsumers);
 constexpr int kMaxSegments = 128;  // width of the packed PWL table
-constexpr int kRowBytes = 128;     // one swizzled row: 64 bf16
 constexpr float kNegInf = -1e30f;  // finite: -inf - (-inf) would be NaN
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle's
@@ -97,166 +98,6 @@ struct Smem {
   static constexpr int kBytes = kTable + 2 * kMaxSegments * 4;
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// -- mbarriers ----------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// -- TMA ------------------------------------------------------------------------
-
-// One box of a 4-D map, coordinates innermost first, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// -- wgmma ------------------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128-byte swizzle. For a K-major operand
-// `stride` (SBO) steps 8 rows and `lead` (LBO) is unused; for an MN-major
-// one `lead` steps 64 columns of MN and `stride` 8 rows of K.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lead, uint32_t stride) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Pins the order of register accesses around wgmma: the compiler may not
-// move an access of these registers across this point, so writes land
-// before wgmma.fence and reads come after wgmma.wait_group.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D[64 x 128] += A[64 x 16] B[16 x 128]: A (bf16) in registers, B MN-major in
-// shared memory (read transposed).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// D[64 x 64] += A[64 x 16] B[16 x 64]: A (bf16) in registers, B MN-major in
-// shared memory (read transposed).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2], const uint32_t (&a)[4], uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&acc)[64], const uint32_t (&a)[4], uint64_t b) {
-  wgmma_rs_n128(acc, a, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&acc)[32], const uint32_t (&a)[4], uint64_t b) {
-  wgmma_rs_n64(acc, a, b);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 template <bool kPwl>
 __device__ __forceinline__ float exp2_mode(float x, const float* tab, int num_segments) {
@@ -467,7 +308,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int kk = 0; kk < 8; ++kk) {
           const uint64_t db = desc_sw128(s_v + s * L::kKVBytes + kk * 16 * kRowBytes,
                                          kBlockN * kRowBytes, 1024);
-          wgmma_pv<D>(acc, pa[kk], db);
+          wgmma_rs<D>(acc, pa[kk], db);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -509,78 +350,16 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // -- host side ----------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the libcuda that the runtime has loaded, so that the
-// library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                      : nullptr;
-  }();
-  return fn;
-}
-
-// Errors of this library beyond cudaError_t's: libcuda has no
-// cuTensorMapEncodeTiled, or it refused a tensor map (kErrTensorMap +
-// CUresult).
-constexpr int kErrNoEncode = 900;
-constexpr int kErrTensorMap = 1000;
-
-// [B, S, H, d] bf16 with dense [S, H, d] and batch stride `bstride`
-// (elements) as a 4-D map, boxes of [rows][1][64 columns], 128-byte swizzle;
-// the sequence extent `seq` is logical, so rows past it read as zeros.
-int make_map(CUtensorMap* map, const void* ptr, int d, int heads, int seq, int batch,
-             long long bstride, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return kErrNoEncode;
-  const cuuint64_t row_bytes = static_cast<cuuint64_t>(heads) * d * 2;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
-  // With one batch its stride is never stepped; any legal value does.
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2, row_bytes,
-                                 batch > 1 ? static_cast<cuuint64_t>(bstride) * 2 : row_bytes * seq};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
-}
-
 template <int D, bool kPwl>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* o, float* lse,
            const float* table, int batch, int heads, int kv_heads, int seq_q, int seq_k,
            int q_offset, int causal, float c, int num_segments, cudaStream_t stream) {
   constexpr int smem = Smem<D>::kAlloc;
   auto kernel = flash_fwd_sm90_kernel<D, kPwl>;
-  // Set up once per device and instantiation: the shared-memory attribute
-  // set, and the SM count kept (0: not yet).
-  constexpr int kMaxDevices = 64;
-  static std::atomic<int> sms_of[kMaxDevices];
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  static GridCache cache;
+  int sms = 0;
+  const cudaError_t err = sm_count(kernel, smem, cache, &sms);
   if (err != cudaSuccess) return err;
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  int sms = sms_of[device].load(std::memory_order_relaxed);
-  if (sms == 0) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    sms_of[device].store(sms, std::memory_order_relaxed);
-  }
   // One CTA an SM (shared memory and registers allow no second), each
   // walking its share of the work tiles.
   const long long n_work = static_cast<long long>((seq_q + kBlockM - 1) / kBlockM) * batch * heads;

@@ -29,8 +29,8 @@ from .profile_serve import FORWARD_GROUPS, report
 
 ARCH = "olmo-1b"
 SHAPE = ShapeConfig("profile_train", 2048, 4, "train")  # chip_smoke.py's train phase
-GROUPS = {**FORWARD_GROUPS, "flash_bwd_dq": "flash_bwd_dq_kernel",
-          "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+GROUPS = {**FORWARD_GROUPS, "flash_bwd_sm90_dq": "flash_bwd_sm90_dq_kernel",
+          "flash_bwd_sm90_dkv": "flash_bwd_sm90_dkv_kernel"}
 
 
 def main() -> None:

@@ -13,7 +13,11 @@ is the twin of the kernel that takes the inputs (``kernel.KERNELS``): the
 sm90 kernel and its twin both round P to bf16 for PV; against the fp32-P
 plain version the sm90 kernel is held to 1e-3 + 2**-8 * (the fp32-P plain
 version's output on |v|) + 2**-7 relative, the bound of P's rounding
-element by element (chip_smoke.TOL_FP32P).  The PWL exp2 kernel is held
+element by element (chip_smoke.TOL_FP32P).  Likewise the backward
+(``kernel_bwd.BWD_KERNELS``): the sm90 pair and its twin both round P and dS
+to bf16 as product operands; against the fp32-P plain version the sm90 pair
+is held to 1e-3 + ``kernel_bwd.departure_bound`` + 2**-7 relative
+(departure (e)).  The PWL exp2 kernel is held
 to its plain version bit for bit: both round the multiply and the add
 separately and the result once to the output's type.
 """
@@ -176,6 +180,11 @@ def _counts():
     return (flash_kernel.launch_count, kernel_bwd.dq_launch_count, kernel_bwd.dkv_launch_count)
 
 
+def _bwd_tile(q):
+    """The tile of the backward pair that takes q."""
+    return kernel_bwd.bwd_tile(q.dtype, q.shape[-1])
+
+
 def _bwd_tol(dtype):
     return dict(atol=1e-4, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-3, rtol=2.0 ** -7)
 
@@ -195,22 +204,97 @@ def test_flash_bwd_matches_plain(cuda_device, dtype, exp2_impl):
     torch.cuda.synchronize()
     assert _counts() == (before[0], before[1] + 1, before[2] + 1)
     ref = kernel_bwd.flash_attention_bwd_plain(
-        q, k, v, out, lse, do, block_q=kernel_bwd.KERNEL_BLOCK, block_k=kernel_bwd.KERNEL_BLOCK, **kw
+        q, k, v, out, lse, do, block_q=_bwd_tile(q), block_k=_bwd_tile(q), **kw
     )
     for g, r in zip(got, ref):
         assert g.dtype == dtype
         torch.testing.assert_close(g.float(), r.float(), **_bwd_tol(dtype))
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "dtype", "lse"])
+# (B, Sq, Sk, H, Hkv, d, causal, q_offset, exp2 of the forward)
+SM90_BWD_CASES = [
+    (1, 256, 256, 8, 2, 64, True, 0, "exact"),
+    (2, 100, 200, 4, 2, 64, True, 100, "exact"),
+    (1, 17, 300, 8, 2, 64, True, 283, "exact"),
+    (1, 300, 812, 16, 16, 128, True, 512, "exact"),
+    (3, 200, 200, 4, 4, 128, True, 0, "pwl"),
+    (1, 150, 150, 2, 1, 128, False, 0, "exact"),
+    # Key tiles past every row's reach (causal, Sk > Sq + q_offset): dK = dV = 0.
+    (1, 100, 400, 4, 2, 64, True, 0, "exact"),
+    # The main path's training shape.
+    (4, 2048, 2048, 16, 16, 128, True, 0, "exact"),
+]
+
+
+@pytest.mark.parametrize("case", SM90_BWD_CASES)
+def test_flash_bwd_sm90_matches_plain(cuda_device, case):
+    """The tensor-core pair against its twin (P and dS rounded to bf16 as it
+    rounds them) at one bf16 step beside twice ``departure_bound`` (a
+    rounding that falls on the other side between the two moves P or dS by
+    one bf16 ulp, at most 2**-7 of itself), and against the fp32-P plain
+    version within the bound of that rounding (departure (e))."""
+    b, sq, sk, h, hkv, d, causal, q_offset, exp2_impl = case
+    q, k, v = _qkv((b, sq, h, d), (b, sk, hkv, d), cuda_device, torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    do = torch.randn(q.shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    kw = dict(causal=causal, scale=d ** -0.5, q_offset=q_offset)
+    out, lse = flash_kernel.flash_attention_fwd(q, k, v, exp2_impl=exp2_impl, return_lse=True, **kw)
+    before = dict(kernel_bwd.launch_counts)
+    got = kernel_bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert kernel_bwd.launch_counts == dict(
+        before, flash_bwd_sm90_dq=before["flash_bwd_sm90_dq"] + 1,
+        flash_bwd_sm90_dkv=before["flash_bwd_sm90_dkv"] + 1)
+    tile = kernel_bwd.SM90.tile
+    args = (q, k, v, out, lse, do)
+    ref = kernel_bwd.flash_attention_bwd_plain(*args, block_q=tile, block_k=tile, **kw)
+    ref32 = kernel_bwd.flash_attention_bwd_plain(*args, block_q=tile, block_k=tile, fp32_p=True, **kw)
+    bounds = kernel_bwd.departure_bound(*args, block_q=tile, block_k=tile, **kw)
+    for g, r, r32, bound in zip(got, ref, ref32, bounds):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g.float()).all())
+        # One bf16 step, and roundings of P or dS that fall apart between
+        # the kernel and the twin (chip_smoke.TOL_BWD_FLIPS).
+        twin_tol = 1e-3 + 2.0 ** -7 * r.float().abs() + 2.0 * bound
+        assert bool(((g.float() - r.float()).abs() <= twin_tol).all())
+        tol = 1e-3 + bound + 2.0 ** -7 * r32.float().abs()
+        assert bool(((g.float() - r32.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype,head_dim,pair", [
+    (torch.float32, 64, "simt"),
+    (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 64, "sm90"),
+    (torch.bfloat16, 128, "sm90"),
+])
+def test_flash_bwd_launch_counts_by_kernel(cuda_device, dtype, head_dim, pair):
+    """Each backward runs the pair ``BWD_KERNELS`` gives it, once each, and
+    no other kernel; ``dq_launch_count`` and ``dkv_launch_count`` are the
+    sums."""
+    q, k, v = _qkv((1, 130, 4, head_dim), (1, 130, 2, head_dim), cuda_device, dtype)
+    kw = dict(causal=True, scale=head_dim ** -0.5, q_offset=0)
+    out, lse = flash_kernel.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    before, sums = dict(kernel_bwd.launch_counts), _counts()
+    kernel_bwd.flash_attention_bwd(q, k, v, out, lse, q, **kw)
+    torch.cuda.synchronize()
+    chosen = kernel_bwd.bwd_kernel_for(dtype, head_dim)
+    assert chosen.name == pair
+    assert kernel_bwd.launch_counts == {
+        e: n + (e in chosen.entries) for e, n in before.items()}
+    assert _counts() == (sums[0], sums[1] + 1, sums[2] + 1)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "lse", "misaligned_do"])
 def test_flash_bwd_refuses_what_it_cannot_take(cuda_device, bad):
     d = 48 if bad == "head_dim" else 64
-    dtype = torch.float16 if bad == "dtype" else torch.float32
+    dtype = {"dtype": torch.float16, "misaligned_do": torch.bfloat16}.get(bad, torch.float32)
     q, k, v = _qkv((1, 64, 2, d), (1, 64, 2, d), cuda_device, dtype)
     lse = torch.zeros((2, 64 if bad != "lse" else 128), device=cuda_device)
+    do = q
+    if bad == "misaligned_do":  # dense, but 2 bytes past a 16-byte boundary (TMA)
+        do = torch.zeros(q.numel() + 8, device=cuda_device, dtype=dtype)[1:q.numel() + 1].view(q.shape)
     before = _counts()
     with pytest.raises(ValueError):
-        kernel_bwd.flash_attention_bwd(q, k, v, q, lse, q, causal=True)
+        kernel_bwd.flash_attention_bwd(q, k, v, q, lse, do, causal=True)
     assert _counts() == before
 
 
@@ -227,7 +311,7 @@ def test_autograd_on_the_card_takes_a_non_dense_grad(cuda_device):
         o, lse = flash_kernel.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
         ref = kernel_bwd.flash_attention_bwd_plain(
             q, k, v, o, lse, torch.ones_like(o), causal=True, scale=64 ** -0.5, q_offset=0,
-            block_q=kernel_bwd.KERNEL_BLOCK, block_k=kernel_bwd.KERNEL_BLOCK,
+            block_q=_bwd_tile(q), block_k=_bwd_tile(q),
         )
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, **_bwd_tol(torch.float32))

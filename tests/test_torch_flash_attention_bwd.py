@@ -81,7 +81,10 @@ def test_bwd_plain_matches_pallas(case, exp2_impl):
 def test_bwd_bf16_gqa_sums_the_group_once():
     """bf16 with GQA (rep 2): within one bf16 rounding of the reference, and
     dK/dV are the fp32 group sums rounded once (ROADMAP queue 3, departure
-    (b)): exactly what the same computation on fp32 inputs gives, rounded."""
+    (b)): with the reference's fp32 P and dS (``fp32_p``), exactly what the
+    same computation on fp32 inputs gives, rounded.  The CPU path rounds P
+    and dS to bf16 as the sm90 pair does (departure (e),
+    tests/test_torch_flash_bwd_sm90.py)."""
     case = (1, 128, 128, 4, 2, 64, True)
     arrays = _arrays(case, seed=1)
     out, lse, ref, qo = _jax_fwd_bwd(case, arrays, jnp.bfloat16, "exact")
@@ -98,7 +101,8 @@ def test_bwd_bf16_gqa_sums_the_group_once():
         )
     q32, k32, v32, do32, o32 = (t.float() for t in (q, k, v, do, o16))
     once = flash_attention_bwd_plain(q32, k32, v32, o32, lse, do32, scale=64 ** -0.5, **kw)
-    for g, r in zip(got, once):
+    fp32_p = flash_attention_bwd_plain(q, k, v, o16, lse, do, scale=64 ** -0.5, fp32_p=True, **kw)
+    for g, r in zip(fp32_p, once):
         torch.testing.assert_close(g, r.to(torch.bfloat16), rtol=0, atol=0)
 
 
