@@ -12,21 +12,28 @@ non-zero):
                (sm_90a), one process per source, all started together;
                ptxas's registers and spills of each tensor-core
                instantiation (the forward may not spill at d = 128, the
-               backward pair not at all).
+               backward pair not at all) and of each SIMT forward
+               instantiation (flash_fwd_kernel<T, D, BQ>: none may spill).
   3. kernels — the forward kernels against their plain PyTorch version on
                the card over a sweep (fp32/bf16, d 16 to 128, causal or not,
-               GQA, ragged Sq and Sk, q_offset > 0, exact/PWL exp2 with K 8
+               GQA, ragged Sq and Sk (Sq 1, 17, 33 around the SIMT kernel's
+               16- and 32-row q tiles), q_offset > 0, exact/PWL exp2 with K 8
                and 4, LSE, a strided KV cache, B up to 4, and the main
-               path's training and chunked-prefill shapes); the kernel that
+               path's training, chunked-prefill, fp32 greedy-prefill and
+               fp32 gradient-check shapes); the kernel that
                takes each case (kernel.KERNELS: "sm90" for bf16 at d 64 and
                128, "simt" otherwise) is held against the plain version that
                rounds P as it does, and the sm90 kernel also against the
                fp32-P plain version within the bound of P's rounding
                (TOL_FP32P, element by element).  Then the sm90
                kernel is timed at the serving and training shapes, and the
-               simt kernel at the fp32 greedy phase's, beside the plain
-               version, F.scaled_dot_product_attention (a yardstick only;
-               the port never calls it) and the card's bound.
+               simt kernel at the fp32 greedy phase's two prefill buckets,
+               the largest fp32 serving bucket and the gradient check's
+               forward (with LSE), in event and device time, beside the
+               plain version, F.scaled_dot_product_attention (a yardstick
+               only; the port never calls it; the profiler names the CUDA
+               kernel it launched) and the card's bound; and at the greedy
+               buckets with the q tile that simt_q_tile did not choose.
   4. kernels_bwd — the dQ and dK/dV kernels against the plain FA-2 version
                over a sweep (fp32/bf16, causal or not, GQA rep 2 and 4,
                ragged S, q_offset > 0, an LSE from a PWL forward, B = 3, d 16
@@ -83,6 +90,12 @@ non-zero):
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --time-simt
+
+runs phases 1 and 2 and the simt kernel's timing alone (no checks beyond
+the build, no result lines), so that one call can time two checkouts of
+the kernel on one card.
 """
 
 from __future__ import annotations
@@ -186,17 +199,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def profiled_ms(fn, iters: int = 20) -> float:
+def profiled(fn, iters: int = 20) -> tuple[float, list[str]]:
     """Device time of one call of ``fn``: every CUDA kernel and memset it
     launches over ``iters`` calls (torch.profiler), without the host's
-    enqueue time that ``cuda_ms`` also sees when the card waits for it."""
+    enqueue time that ``cuda_ms`` also sees when the card waits for it;
+    and the names of the kernels it launched."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return _device_ms(prof) / iters
+    names = sorted({e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA})
+    return _device_ms(prof) / iters, names
+
+
+def profiled_ms(fn, iters: int = 20) -> float:
+    return profiled(fn, iters)[0]
 
 
 def reset_fwd_counts() -> None:
@@ -240,6 +259,18 @@ SWEEP = [
     (4, 2048, 2048, 16, 16, 128, True, 0, torch.bfloat16, "exact", 8, True, None),
     (1, 512, 1536, 16, 16, 128, True, 1024, torch.bfloat16, "exact", 8, True, 2048),
     (1, 512, 2048, 16, 16, 128, True, 1536, torch.bfloat16, "exact", 8, True, 2048),
+    # The simt kernel (fp32; bf16 at d 16 and 32): Sq of 1, 17 and 33 around
+    # its 16- and 32-row q tiles, with GQA, q_offset > 0, the PWL at K 4 and
+    # 8 and LSE; then the fp32 greedy phase's two prefill buckets (a prefix
+    # of its 512-slot cache) and the fp32 gradient check's forward.
+    (1, 1, 130, 8, 4, 128, True, 129, torch.float32, "exact", 8, True, None),
+    (2, 17, 17, 4, 2, 64, True, 0, torch.float32, "pwl", 4, True, None),
+    (1, 17, 81, 8, 4, 16, True, 64, torch.bfloat16, "exact", 8, True, None),
+    (1, 33, 33, 16, 16, 128, False, 0, torch.float32, "pwl", 8, True, None),
+    (1, 33, 300, 4, 2, 32, True, 267, torch.bfloat16, "pwl", 8, True, None),
+    (1, 64, 64, 16, 16, 128, True, 0, torch.float32, "exact", 8, False, 512),
+    (1, 256, 256, 16, 16, 128, True, 0, torch.float32, "exact", 8, False, 512),
+    (2, 1024, 1024, 16, 16, 128, True, 0, torch.float32, "exact", 8, True, None),
 ]
 
 
@@ -374,7 +405,8 @@ def _time_forward(b, s, h, d, dtype, lse, plain_iters, gen, peak_flops):
     ms, kernel_device_ms = cuda_ms(kernel), profiled_ms(kernel)
     plain_ms = cuda_ms(lambda: flash.flash_attention_fwd_plain(
         q, k, v, block_q=tile, block_k=tile, **kw), iters=plain_iters, warmup=1)
-    library_ms, library_device_ms = cuda_ms(library), profiled_ms(library)
+    library_ms = cuda_ms(library)
+    library_device_ms, library_kernels = profiled(library)
     flops, nbytes = _attention_cost(b, s, h, d, q.element_size())
     nbytes += b * h * s * 4 if lse else 0
     bound_ms, bound_by = _bound(flops, nbytes, peak_flops)
@@ -386,7 +418,8 @@ def _time_forward(b, s, h, d, dtype, lse, plain_iters, gen, peak_flops):
                device_ms=kernel_device_ms, library_device_ms=library_device_ms,
                device_tflops=flops / kernel_device_ms / 1e9,
                device_share_of_bound=bound_ms / kernel_device_ms,
-               device_vs_library=kernel_device_ms / library_device_ms)
+               device_vs_library=kernel_device_ms / library_device_ms,
+               library_kernels=library_kernels)
     emit("kernels", timing=row)
     return row
 
@@ -400,12 +433,37 @@ def time_flash() -> list[dict]:
             for b, s, lse, iters in ((1, 512, False, 20), (1, 2048, False, 20), (4, 2048, True, 3))]
 
 
-def time_flash_simt() -> dict:
-    """The simt kernel at the fp32 greedy phase's largest prefill bucket
-    (bound by the CUDA cores' fp32 rate: fp32 inputs never take the tensor
-    cores; SDPA in fp32 as the yardstick)."""
+# The simt kernel's timed shapes, (B, S, LSE, plain version's timings): the
+# fp32 greedy phase's two prefill buckets (37 -> 64; 130 and 256 -> 256),
+# the largest fp32 serving bucket, and the fp32 gradient check's forward
+# (GRADS_BATCH x GRADS_SEQ, with the LSE the backward reads).
+SIMT_TIMED = ((1, 64, False, 20), (1, 256, False, 20), (1, 2048, False, 3), (2, 1024, True, 3))
+
+
+def time_flash_simt() -> list[dict]:
+    """The simt kernel at SIMT_TIMED's causal shapes, 16 heads of 128 (bound
+    by the CUDA cores' fp32 rate: fp32 inputs never take the tensor cores;
+    SDPA in fp32 as the yardstick)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    return _time_forward(1, 256, 16, 128, torch.float32, False, 20, gen, PEAK_FP32_FLOPS)
+    return [_time_forward(b, s, 16, 128, torch.float32, lse, iters, gen, PEAK_FP32_FLOPS)
+            for b, s, lse, iters in SIMT_TIMED]
+
+
+def time_simt_q_tiles() -> list[dict]:
+    """Device time of the simt kernel at the greedy phase's buckets with
+    each q tile, the one simt_q_tile chooses and the other."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for b, s, lse, _ in SIMT_TIMED[:2]:
+        q, k, v = (_randn((b, s, 16, 128), gen, torch.float32) for _ in range(3))
+        kw = dict(causal=True, scale=128 ** -0.5, q_offset=0, exp2_impl="exact",
+                  num_segments=8, return_lse=lse)
+        row = dict(shape=[b, s, 16, 128], chosen=flash.simt_q_tile(b, 16, s, flash._sm_count(q.device)))
+        for tile in flash.SIMT_Q_TILES:
+            row[f"device_ms_q{tile}"] = profiled_ms(lambda: flash._launch(q, k, v, block_q=tile, **kw))
+        emit("kernels", simt_q_tiles=row)
+        rows.append(row)
+    return rows
 
 
 # -- phase 4: backward kernels -----------------------------------------------------
@@ -889,10 +947,11 @@ TOL_GRADS = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 def grads(cfg) -> dict:
-    """Largest relative gradient error by dtype, and the backward launches
-    of each kernel path (fp32: the simt pair; bf16: the sm90 pair, one
-    launch of each kernel per layer)."""
-    worst, launches = {}, {}
+    """Largest relative gradient error by dtype, and the forward and
+    backward launches of each kernel path (fp32: the simt forward and pair;
+    bf16: the sm90 forward and pair; the forward once per layer, twice with
+    remat, and one launch of each backward kernel per layer)."""
+    worst, launches, fwd_launches = {}, {}, {}
     for dtype, tol in TOL_GRADS.items():
         small = dataclasses.replace(cfg, num_layers=GRADS_DEPTH, dtype=dtype)
         params = init_params(small, seed=2, device="cuda")
@@ -900,26 +959,32 @@ def grads(cfg) -> dict:
         toks = torch.randint(0, small.vocab_size, (GRADS_BATCH, GRADS_SEQ + 1), generator=gen, device="cuda")
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
         torch.cuda.synchronize()
+        reset_fwd_counts()
         reset_bwd_counts()
         loss, got = value_and_grad(small, params, batch)
         torch.cuda.synchronize()
         launches[dtype] = dict(flash_bwd.launch_counts)
+        fwd_launches[dtype] = dict(flash.launch_counts)
         pair = flash_bwd.bwd_kernel_for(small.activation_dtype, small.resolved_head_dim)
         expected = {e: GRADS_DEPTH * (e in pair.entries) for e in flash_bwd.launch_counts}
         if launches[dtype] != expected:
             raise AssertionError(f"{dtype} gradients launched {launches[dtype]}, expected {expected}")
+        fwd = flash.kernel_for(small.activation_dtype, small.resolved_head_dim).name
+        fwd_expected = {name: GRADS_DEPTH * (2 if small.remat else 1) * (name == fwd) for name in flash.launch_counts}
+        if fwd_launches[dtype] != fwd_expected:
+            raise AssertionError(f"{dtype} forward launched {fwd_launches[dtype]}, expected {fwd_expected}")
         ref_loss, ref = value_and_grad(dataclasses.replace(small, attention_impl="naive"), params, batch)
         rel = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
                   for a, b in zip(tree_leaves(got), tree_leaves(ref)))
         emit("grads", dtype=dtype, depth=GRADS_DEPTH, batch=GRADS_BATCH, seq=GRADS_SEQ,
              loss=float(loss), naive_loss=float(ref_loss), max_rel_err=rel, tol=tol,
-             bwd_launches=launches[dtype])
+             fwd_launches=fwd_launches[dtype], bwd_launches=launches[dtype])
         if not rel <= tol or not math.isfinite(float(loss)):
             raise AssertionError(f"{dtype} gradients differ from the naive path: {rel} > {tol}")
         worst[dtype] = rel
         del params, got, ref
         torch.cuda.empty_cache()
-    return dict(worst=worst, launches=launches)
+    return dict(worst=worst, launches=launches, fwd_launches=fwd_launches)
 
 
 # -- phase 10: the autotuner ------------------------------------------------------------
@@ -973,18 +1038,15 @@ def tune() -> dict:
 SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel")
 
 
-def sm90_ptxas(log: str) -> list[dict]:
-    """Registers, stack and spills of each tensor-core kernel instantiation
-    (flash_fwd_sm90_kernel<D, PWL>, flash_bwd_sm90_{dq,dkv}_kernel<D>), from
-    ptxas -v in a build log."""
+def _ptxas_frames(log: str, entry_pattern: str, fields) -> list[dict]:
+    """Registers, stack and spills of each kernel instantiation whose
+    mangled name ``entry_pattern`` matches in ptxas -v's report; ``fields``
+    turns the match into the row's first keys."""
     rows, row = [], None
-    names = "|".join(SM90_KERNELS)
     for line in log.splitlines():
-        entry = re.search(rf"Compiling entry function '\S*({names})ILi(\d+)E(?:Lb([01])E)?", line)
+        entry = re.search(rf"Compiling entry function '\S*{entry_pattern}", line)
         if entry:
-            row = dict(kernel=entry.group(1), head_dim=int(entry.group(2)))
-            if entry.group(3) is not None:
-                row["pwl"] = entry.group(3) == "1"
+            row = fields(entry)
             rows.append(row)
             continue
         if row is None:
@@ -998,6 +1060,28 @@ def sm90_ptxas(log: str) -> list[dict]:
             row["registers"] = int(used.group(1))
             row = None
     return rows
+
+
+def sm90_ptxas(log: str) -> list[dict]:
+    """Registers, stack and spills of each tensor-core kernel instantiation
+    (flash_fwd_sm90_kernel<D, PWL>, flash_bwd_sm90_{dq,dkv}_kernel<D>), from
+    ptxas -v in a build log."""
+    def fields(entry):
+        row = dict(kernel=entry.group(1), head_dim=int(entry.group(2)))
+        if entry.group(3) is not None:
+            row["pwl"] = entry.group(3) == "1"
+        return row
+    names = "|".join(SM90_KERNELS)
+    return _ptxas_frames(log, rf"({names})ILi(\d+)E(?:Lb([01])E)?", fields)
+
+
+def simt_ptxas(log: str) -> list[dict]:
+    """Registers, stack and spills of each SIMT forward instantiation
+    (flash_fwd_kernel<T, D, BQ>, T float or __nv_bfloat16), from ptxas -v."""
+    def fields(entry):
+        return dict(kernel="flash_fwd_kernel", dtype="float32" if entry.group(1) == "f" else "bfloat16",
+                    head_dim=int(entry.group(2)), q_tile=int(entry.group(3)))
+    return _ptxas_frames(log, r"16flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", fields)
 
 
 def main() -> None:
@@ -1017,18 +1101,29 @@ def main() -> None:
     ]
     emit("build", seconds=time.perf_counter() - t0, libraries=[p.name for p in libs.values()],
          ptxas=ptxas)
+    if sys.argv[1:] == ["--time-simt"]:
+        time_flash_simt()
+        return
+    if sys.argv[1:]:
+        raise SystemExit(f"usage: {sys.argv[0]} [--time-simt]")
     sm90 = sm90_ptxas(libs["flash_fwd_sm90"].with_suffix(".log").read_text())
     sm90_bwd = sm90_ptxas(libs["flash_bwd_sm90"].with_suffix(".log").read_text())
-    emit("build", flash_fwd_sm90=sm90, flash_bwd_sm90=sm90_bwd)
+    simt = simt_ptxas(libs["flash_fwd"].with_suffix(".log").read_text())
+    # flash_fwd_kernel<T, D, BQ>: each (dtype, head_dim) KERNELS gives it, each q tile.
+    simt_instances = len(flash.SIMT_Q_TILES) * sum(k is flash.SIMT for k in flash.KERNELS.values())
+    emit("build", flash_fwd_sm90=sm90, flash_bwd_sm90=sm90_bwd, flash_fwd=simt)
     if len(sm90) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in sm90 if r["head_dim"] == 128):
         raise AssertionError(f"flash_fwd_sm90 instantiations missing or spilling at d = 128: {sm90}")
     if len(sm90_bwd) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in sm90_bwd):
         raise AssertionError(f"flash_bwd_sm90 instantiations missing or spilling: {sm90_bwd}")
+    if len(simt) != simt_instances or any(r["spill_stores"] or r["spill_loads"] for r in simt):
+        raise AssertionError(f"flash_fwd (simt) instantiations missing or spilling: {simt}")
 
     sweep_err = check_flash_sweep()
     check_pwl_subnormal_range()
     timing = time_flash()
     simt_timing = time_flash_simt()
+    simt_q_tiles = time_simt_q_tiles()
     bwd_err = check_bwd_sweep()
     bwd_timing = time_bwd()
     pwl_compared, pwl_err = check_pwl()
@@ -1048,7 +1143,10 @@ def main() -> None:
     tuned = tune()
 
     serve_shape = next(r for r in timing if r["shape"] == [1, 2048, 16, 128])
-    fwd_launches = dict(serve=served["launches"], train=trained["launches"]["flash_fwd"])
+    fwd_launches = dict(serve=served["launches"], train=trained["launches"]["flash_fwd"],
+                        grads_bfloat16=graded["fwd_launches"]["bfloat16"]["sm90"])
+    greedy_shape = next(r for r in simt_timing if r["shape"] == [1, 256, 16, 128])
+    simt_launches = dict(greedy=greedied["launches"], grads_float32=graded["fwd_launches"]["float32"]["simt"])
     # The forward's two kernels, both ports of _fwd_kernel: the sm90 one on
     # the bf16 main path (serve, train), the simt one on the fp32 greedy path.
     records = [dict(
@@ -1063,15 +1161,19 @@ def main() -> None:
         library_ms=serve_shape["library_ms"], shape=serve_shape["shape"], by_shape=timing,
         ptxas=sm90,
     ), dict(
-        name="flash_fwd_simt", variant="simt: fp32 FMAs on the CUDA cores (fp32; bf16 at d 16 and 32)",
+        name="flash_fwd_simt",
+        variant="simt: register-blocked fp32 FMAs on the CUDA cores, staggered cp.async loads, two CTAs an SM, "
+                "q tile 32 or 16 (fp32; bf16 at d 16 and 32)",
         route="cuda", source="src/repro_torch/kernels/csrc/flash_fwd.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:64",
-        launches=greedied["launches"], launches_by_path=dict(greedy=greedied["launches"]),
+        launches=sum(simt_launches.values()), launches_by_path=simt_launches,
         max_abs_err=sweep_err["simt"],
-        tol={"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16]},
-        ms=simt_timing["ms"], plain_ms=simt_timing["plain_ms"], bound_ms=simt_timing["bound_ms"],
-        bound_by=simt_timing["bound_by"], library_ms=simt_timing["library_ms"],
-        shape=simt_timing["shape"], by_shape=[simt_timing],
+        tol={"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16], "lse": TOL_LSE},
+        ms=greedy_shape["ms"], device_ms=greedy_shape["device_ms"], plain_ms=greedy_shape["plain_ms"],
+        bound_ms=greedy_shape["bound_ms"], bound_by=greedy_shape["bound_by"],
+        library_ms=greedy_shape["library_ms"], library_device_ms=greedy_shape["library_device_ms"],
+        library_kernels=greedy_shape["library_kernels"], shape=greedy_shape["shape"],
+        by_shape=simt_timing, by_q_tile=simt_q_tiles, ptxas=simt,
     )]
     # Each backward kernel is timed alone; the plain version and SDPA's
     # backward compute dQ, dK and dV together, so theirs are the whole's.

@@ -17,14 +17,17 @@ The table ``KERNELS`` chooses the kernel from ``(dtype, head_dim)``; each
   warpgroups, 128 x 128 tiles. P is rounded to bf16 for the PV product (l
   and the LSE come from the fp32 P);
 * ``SIMT`` (``flash_fwd.cu``) for fp32 at d 16 to 128 and bf16 at d 16
-  and 32: fp32 FMAs on the CUDA cores, 64 x 64 tiles, P kept in fp32 (the
-  reference's numerics).
+  and 32: register-blocked fp32 FMAs on the CUDA cores, two CTAs an SM,
+  each loading K and V by cp.async while the other product runs; 64-key
+  tiles and a q tile of 32 or 16 rows that the wrapper chooses per call
+  (``simt_q_tile``: 16 where 32-row tiles would leave SMs idle); P kept in
+  fp32 (the reference's numerics).
 
 Nothing falls back: a CUDA tensor the chosen kernel cannot take raises.
 The plain version mirrors the kernel that ``KERNELS`` gives its inputs: it
 rounds P to bf16 where that kernel does (``fp32_p=True`` keeps the
 reference's fp32 P). ``block_q`` and ``block_k`` set its tiles; the
-kernels' are fixed (``fwd_tile``). Results of two tilings agree to
+kernels' k tiles are fixed (``fwd_tile``). Results of two tilings agree to
 tolerance, not to the bit. With the PWL exp2 they agree less well: the
 rescale factor ``pwl(c (m_old - m_new))`` is not multiplicative, so where
 the k tiles break moves ``l`` and the LSE (by up to ~1e-3); on the card a
@@ -52,9 +55,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 class FwdKernel(NamedTuple):
     """One forward kernel: its name (the key of ``launch_counts``), its
-    library and C entry point (all take the same arguments), its q and k
-    tile (kBlockM/kBlockN of flash_fwd_sm90.cu, kBlockQ/kBlockK of
-    flash_fwd.cu), and the dtype it rounds P to for PV (None: fp32 P)."""
+    library and C entry point (all take the same arguments; ``flash_fwd``
+    takes the q tile after them), its k tile (kBlockN of
+    flash_fwd_sm90.cu, which is also its q tile; kBlockK of flash_fwd.cu,
+    whose q tile ``simt_q_tile`` chooses), and the dtype it rounds P to for
+    PV (None: fp32 P)."""
 
     name: str
     entry: str
@@ -98,9 +103,19 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> FwdKernel:
 
 
 def fwd_tile(dtype: torch.dtype, head_dim: int) -> int:
-    """The q and k tile of the kernel that takes ``(dtype, head_dim)``: the
-    plain version's tiles when it is held against that kernel."""
+    """The k tile of the kernel that takes ``(dtype, head_dim)``: the plain
+    version's tiles when it is held against that kernel (its q tile only
+    groups independent rows)."""
     return kernel_for(dtype, head_dim).tile
+
+
+SIMT_Q_TILES = (32, 16)
+
+
+def simt_q_tile(batch: int, heads: int, seq_q: int, sms: int) -> int:
+    """The SIMT kernel's q tile: 32 rows, or 16 where 32-row tiles give
+    fewer CTAs (one per (b*h, q tile)) than the card has SMs."""
+    return 32 if batch * heads * -(-seq_q // 32) >= sms else 16
 
 
 def flash_attention_fwd(
@@ -178,8 +193,15 @@ def _library(name: str) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = getattr(lib, name)
     fn.argtypes = [p] * 6 + [i] * 7 + [ll] * 3 + [i, i, ctypes.c_float, i, i, p]
+    if name == SIMT.entry:
+        fn.argtypes.append(i)  # the q tile
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def is_dense(t: torch.Tensor) -> bool:
@@ -202,7 +224,8 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
 
 
 def check_tma_layout(name: str, t: torch.Tensor) -> None:
-    """Raise ``ValueError`` unless a TMA tensor map can describe ``t``
+    """Raise ``ValueError`` unless a TMA tensor map (the sm90 kernel) and
+    16-byte ``cp.async`` copies (the SIMT kernel) can describe ``t``
     (``[B, S, H, d]``): dense ``[S, H, d]`` inner dims, a 16-byte aligned
     base, and byte strides that are multiples of 16 (the batch stride only
     where B > 1). A prefix of a KV cache, batch stride capacity * H * d,
@@ -211,7 +234,7 @@ def check_tma_layout(name: str, t: torch.Tensor) -> None:
     _check_layout(name, t)
     base = t.data_ptr()
     if base % 16:
-        raise ValueError(f"{name}: base address {base:#x} is not 16-byte aligned (TMA)")
+        raise ValueError(f"{name}: base address {base:#x} is not 16-byte aligned (TMA, cp.async)")
     batch, _, heads, d = t.shape
     size = t.element_size()
     strides = {"head": d * size, "sequence": heads * d * size}
@@ -219,10 +242,14 @@ def check_tma_layout(name: str, t: torch.Tensor) -> None:
         strides["batch"] = t.stride(0) * size
     for dim, nbytes in strides.items():
         if nbytes % 16:
-            raise ValueError(f"{name}: {dim} stride of {nbytes} bytes is not a multiple of 16 (TMA)")
+            raise ValueError(
+                f"{name}: {dim} stride of {nbytes} bytes is not a multiple of 16 (TMA, cp.async)")
 
 
-def _launch(q, k, v, *, causal, scale, q_offset, exp2_impl, num_segments, return_lse):
+def _launch(q, k, v, *, causal, scale, q_offset, exp2_impl, num_segments, return_lse,
+            block_q=None):
+    """Launch the kernel that ``KERNELS`` gives the inputs; ``block_q``
+    overrides ``simt_q_tile`` for the SIMT kernel (to time both tiles)."""
     batch, sq, heads, d = q.shape
     _, sk, kv_heads, _ = k.shape
     if not q.dtype == k.dtype == v.dtype:
@@ -234,9 +261,15 @@ def _launch(q, k, v, *, causal, scale, q_offset, exp2_impl, num_segments, return
         raise ValueError(f"need Sq >= 1, Sk >= 1, q_offset >= 0: {sq}, {sk}, {q_offset}")
     if exp2_impl == "pwl" and not 1 <= num_segments <= 128:
         raise ValueError(f"num_segments must be in [1, 128]: {num_segments}")
-    check = check_tma_layout if kernel is SM90 else _check_layout
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check(name, t)
+        check_tma_layout(name, t)
+    extra = ()
+    if kernel is SIMT:
+        if block_q is None:
+            block_q = simt_q_tile(batch, heads, sq, _sm_count(q.device))
+        if block_q not in SIMT_Q_TILES:
+            raise ValueError(f"SIMT q tile must be one of {SIMT_Q_TILES}: {block_q}")
+        extra = (block_q,)
 
     entry = getattr(_library(kernel.entry), kernel.entry)
     o = torch.empty((batch, sq, heads, d), dtype=q.dtype, device=q.device)
@@ -254,11 +287,12 @@ def _launch(q, k, v, *, causal, scale, q_offset, exp2_impl, num_segments, return
             _DTYPE_CODES[q.dtype], batch, heads, kv_heads, sq, sk, d,
             q.stride(0), k.stride(0), v.stride(0),
             q_offset, int(causal), scale * LOG2_E, int(pwl), num_segments,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            torch.cuda.current_stream(q.device).cuda_stream, *extra,
         )
     if err != 0:
         # flash_fwd_sm90.cu: 900, libcuda has no cuTensorMapEncodeTiled;
-        # 1000 + CUresult, libcuda refused a tensor map.
+        # 1000 + CUresult, libcuda refused a tensor map. flash_fwd.cu: 716,
+        # a base or batch stride off 16 bytes.
         raise RuntimeError(f"{kernel.entry} kernel launch failed: error {err}")
     launch_counts[kernel.name] += 1
     return (o, lse) if return_lse else o

@@ -83,6 +83,46 @@ def test_flash_fwd_matches_plain(cuda_device, dtype, exp2_impl):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("exp2_impl,segments", [("exact", 8), ("pwl", 4), ("pwl", 8)])
+@pytest.mark.parametrize("seq_q", [1, 17, 33, 64, 256])
+@pytest.mark.parametrize("dtype,head_dim", [(torch.float32, 128), (torch.float32, 64), (torch.bfloat16, 32)])
+def test_flash_fwd_simt_matches_plain(cuda_device, dtype, head_dim, seq_q, exp2_impl, segments):
+    """The SIMT kernel against its plain version at its 64-key tile: Sq
+    around its 16- and 32-row q tiles, GQA rep 2, q_offset > 0, B = 2, the
+    LSE; fp32 at 3e-5, bf16 at one bf16 step, the LSE at 1e-4."""
+    q_offset = 37
+    q, k, v = _qkv((2, seq_q, 8, head_dim), (2, seq_q + q_offset, 4, head_dim), cuda_device, dtype,
+                   seed=seq_q)
+    kw = dict(causal=True, scale=head_dim ** -0.5, q_offset=q_offset, exp2_impl=exp2_impl,
+              num_segments=segments, return_lse=True)
+    before = dict(flash_kernel.launch_counts)
+    out, lse = flash_kernel.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_kernel.launch_counts == dict(before, simt=before["simt"] + 1)
+    tile = flash_kernel.SIMT.tile
+    ref, ref_lse = flash_kernel.flash_attention_fwd_plain(q, k, v, block_q=tile, block_k=tile, **kw)
+    fp32 = dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-5 if fp32 else 1e-3,
+                               rtol=0 if fp32 else 2.0 ** -7)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("seq_q", [33, 256])
+def test_flash_fwd_simt_q_tiles_agree(cuda_device, seq_q):
+    """Both q tiles of the SIMT kernel against the plain version: rows are
+    independent, so the tile moves no result beyond fp32's 3e-5."""
+    q, k, v = _qkv((1, seq_q, 16, 128), (1, seq_q, 16, 128), cuda_device, torch.float32, seed=3)
+    kw = dict(causal=True, scale=128 ** -0.5, q_offset=0, exp2_impl="pwl", num_segments=8,
+              return_lse=True)
+    tile = flash_kernel.SIMT.tile
+    ref, ref_lse = flash_kernel.flash_attention_fwd_plain(q, k, v, block_q=tile, block_k=tile, **kw)
+    for block_q in flash_kernel.SIMT_Q_TILES:
+        out, lse = flash_kernel._launch(q, k, v, block_q=block_q, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, atol=3e-5, rtol=0)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
 # (B, Sq, Sk, H, Hkv, d, causal, q_offset, exp2, segments, kv capacity)
 SM90_CASES = [
     (1, 256, 256, 8, 2, 64, True, 0, "exact", 8, None),
@@ -126,16 +166,19 @@ def test_flash_fwd_sm90_matches_plain(cuda_device, case):
     torch.testing.assert_close(lse, ref32_lse, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "dtype", "layout", "tma_batch_stride"])
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "layout", "tma_batch_stride", "simt_batch_stride"])
 def test_flash_fwd_refuses_what_it_cannot_take(cuda_device, bad):
     d = 48 if bad == "head_dim" else 64
     dtype = {"dtype": torch.float16, "tma_batch_stride": torch.bfloat16}.get(bad, torch.float32)
     q, k, v = _qkv((1, 64, 2, d), (1, 64, 2, d), cuda_device, dtype)
     if bad == "layout":
         q = q.transpose(1, 2).contiguous().transpose(1, 2)  # [B, S, H, d] view of [B, H, S, d]
-    if bad == "tma_batch_stride":  # dense inner dims, a batch stride of 8 bytes past 16
-        buf = torch.zeros(2 * 64 * 2 * d + 4, device=cuda_device, dtype=dtype)
-        q = k = v = torch.as_strided(buf, (2, 64, 2, d), (64 * 2 * d + 4, 2 * d, d, 1))
+    if bad in ("tma_batch_stride", "simt_batch_stride"):
+        # dense inner dims, a batch stride of 8 (bf16) or 4 (fp32) bytes past 16:
+        # neither TMA nor the SIMT kernel's 16-byte cp.async can read it
+        pad = 4 if dtype == torch.bfloat16 else 1
+        buf = torch.zeros(2 * 64 * 2 * d + pad, device=cuda_device, dtype=dtype)
+        q = k = v = torch.as_strided(buf, (2, 64, 2, d), (64 * 2 * d + pad, 2 * d, d, 1))
     before = flash_kernel.launch_count
     with pytest.raises(ValueError):
         flash_kernel.flash_attention_fwd(q, k, v, causal=True)

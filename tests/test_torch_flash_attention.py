@@ -5,7 +5,8 @@ numpy inputs go to both packages.
 
 Tolerances: fp32 3e-5 and bf16 2e-2 on the output, as tests/test_kernels.py
 holds the Pallas kernel; the LSE (fp32, |LSE| < 10 here) at 1e-5.  Both
-sides run 64 x 64 tiles, so only the order of fp32 sums differs.
+sides run 64 x 64 tiles, so only the order of fp32 sums differs.  Also the
+SIMT kernel's q-tile choice (``simt_q_tile``), which runs on the CPU.
 """
 
 import numpy as np
@@ -74,6 +75,48 @@ def test_flash_fwd_bf16_matches_pallas(exp2_impl):
     np.testing.assert_allclose(
         out.float().numpy(), np.asarray(ref, np.float32), atol=2e-2
     )
+
+
+@pytest.mark.parametrize("exp2_impl", ["exact", "pwl"])
+def test_flash_fwd_bf16_simt_route_matches_pallas(exp2_impl):
+    """bf16 at d 32, the SIMT kernel's other route (P kept in fp32), at its
+    64-key tile: GQA rep 2, ragged Sq and Sk, q_offset > 0, with the LSE."""
+    case = (1, 100, 164, 4, 2, 32, True)
+    tile = flash_kernel.fwd_tile(torch.bfloat16, 32)
+    assert flash_kernel.kernel_for(torch.bfloat16, 32) is flash_kernel.SIMT
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(case, seed=4))
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (tq, tk, tv))
+    kw = dict(causal=True, q_offset=64, block_q=tile, block_k=tile, exp2_impl=exp2_impl,
+              return_lse=True)
+    ref, ref_lse = jax_flash_fwd(jq, jk, jv, interpret=True, **kw)
+    out, lse = flash_attention_fwd(tq, tk, tv, **kw)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=2e-2)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[:, :case[1]], atol=1e-5)
+
+
+# (B, H, Sq): the greedy buckets (64, 256), the fp32 serving and gradient
+# shapes, both sides of 132 CTAs of 32 rows, and one row.
+Q_TILE_CASES = [
+    (1, 16, 64), (1, 16, 256), (1, 16, 2048), (2, 16, 1024),
+    (1, 16, 257), (1, 131, 32), (4, 33, 32), (1, 1, 1), (3, 4, 17),
+]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("batch,heads,seq_q", Q_TILE_CASES)
+def test_simt_q_tile_fills_the_card(batch, heads, seq_q, sms):
+    """32-row q tiles where they give a CTA to every SM, else 16-row ones,
+    never more than 16 rows when B*H*ceil(Sq/32) < SMs; the grid has one CTA
+    per (b*h, q tile)."""
+    tile = flash_kernel.simt_q_tile(batch, heads, seq_q, sms)
+    grid = batch * heads * -(-seq_q // tile)
+    tiles_32 = batch * heads * -(-seq_q // 32)
+    assert tile in flash_kernel.SIMT_Q_TILES
+    if tiles_32 < sms:
+        assert tile == 16 and grid >= tiles_32
+    else:
+        assert tile == 32 and grid >= sms
 
 
 @pytest.mark.parametrize("exp2_impl", ["exact", "pwl"])
