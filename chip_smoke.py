@@ -12,8 +12,12 @@ non-zero):
                (sm_90a), one process per source, all started together;
                ptxas's registers and spills of each tensor-core
                instantiation (the forward may not spill at d = 128, the
-               backward pair not at all) and of each SIMT forward
-               instantiation (flash_fwd_kernel<T, D, BQ>: none may spill).
+               backward pair not at all), of each SIMT forward
+               instantiation (flash_fwd_kernel<T, D, BQ>) and of each SIMT
+               backward instantiation (flash_bwd_dq_kernel and
+               flash_bwd_dkv_kernel<T, D, R>: per dtype, d and resident
+               tile), none of which may spill; the SIMT backward's CTAs an
+               SM by the occupancy API.
   3. kernels — the forward kernels against their plain PyTorch version on
                the card over a sweep (fp32/bf16, d 16 to 128, causal or not,
                GQA, ragged Sq and Sk (Sq 1, 17, 33 around the SIMT kernel's
@@ -36,20 +40,26 @@ non-zero):
                buckets with the q tile that simt_q_tile did not choose.
   4. kernels_bwd — the dQ and dK/dV kernels against the plain FA-2 version
                over a sweep (fp32/bf16, causal or not, GQA rep 2 and 4,
-               ragged S, q_offset > 0, an LSE from a PWL forward, B = 3, d 16
-               to 128, the training shape); the pair that takes each case
+               ragged Sq and Sk (Sq 1, 17, 33 around the simt pair's
+               tiles), q_offset > 0, an LSE from a PWL forward, B = 3, d 16
+               to 128, the training shape, and the simt pair at its timed
+               shapes); the pair that takes each case
                (kernel_bwd.BWD_KERNELS: "sm90" for bf16 at d 64 and 128,
                "simt" otherwise) must launch once per kernel and is held
                against the plain version that rounds P and dS as it does
-               (the sm90 pair with the bound of roundings that fall apart,
-               TOL_BWD_FLIPS), and the sm90 pair also against the fp32-P
-               plain version within the bound of that rounding
-               (TOL_BWD_FP32P beside kernel_bwd.departure_bound, element by
-               element).  Then the
+               (the simt pair's dQ at its q tile and dK/dV at its k tile,
+               kernel_bwd.simt_bwd_tiles; the sm90 pair with the bound of
+               roundings that fall apart, TOL_BWD_FLIPS), and the sm90 pair
+               also against the fp32-P plain version within the bound of
+               that rounding (TOL_BWD_FP32P beside
+               kernel_bwd.departure_bound, element by element).  Then the
                sm90 pair is timed at the training shape and the simt pair
-               at the fp32 gradient check's, each kernel alone and the
-               whole, in event and device time, beside the plain version,
-               SDPA's backward and the bound.
+               at [1, 256], [2, 1024] (the fp32 gradient check's shape) and
+               [1, 2048], fp32 causal, 16 heads of 128: each kernel alone
+               and the whole, in event and device time (each kernel's share
+               of the whole from the profiler), beside the plain version,
+               SDPA's backward and the bound; and the simt pair at [1, 256]
+               with each resident tile.
   5. kernels_pwl — the standalone PWL exp2 kernel against its plain version,
                bit for bit, in fp32, bf16 and fp16 for K in {2, ..., 64}
                (inputs down to the fp32 underflow, 0, -0, -inf, NaN; a
@@ -93,13 +103,16 @@ record per kernel, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-simt
 
-runs phases 1 and 2 and the simt kernel's timing alone (no checks beyond
-the build, no result lines), so that one call can time two checkouts of
-the kernel on one card.
+runs phases 1 and 2 and the simt kernels' timing alone (no checks beyond
+the build, no result lines): the forward's, and the simt backward pair's
+at its three shapes through its public entry (the whole, and each
+kernel's device time from the profiler), so that one call can time two
+checkouts of the kernels on one card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -199,23 +212,40 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def _device_events(fn, iters: int) -> list:
+    """torch.profiler's CUDA events (``key_averages``) over ``iters`` calls
+    of ``fn``, after one call outside the capture.  A capture now and then
+    records no device event at all; it is then taken again, up to three
+    times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.self_device_time_total for e in events) > 0:
+            return events
+    raise RuntimeError("torch.profiler recorded no device time in three captures")
+
+
 def profiled(fn, iters: int = 20) -> tuple[float, list[str]]:
     """Device time of one call of ``fn``: every CUDA kernel and memset it
     launches over ``iters`` calls (torch.profiler), without the host's
     enqueue time that ``cuda_ms`` also sees when the card waits for it;
     and the names of the kernels it launched."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    names = sorted({e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA})
-    return _device_ms(prof) / iters, names
+    events = _device_events(fn, iters)
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters, sorted({e.key for e in events})
 
 
 def profiled_ms(fn, iters: int = 20) -> float:
     return profiled(fn, iters)[0]
+
+
+def profiled_by_kernel(fn, iters: int = 20) -> dict[str, float]:
+    """Device time of one call of ``fn`` by CUDA kernel name (as ``profiled``)."""
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in _device_events(fn, iters)}
 
 
 def reset_fwd_counts() -> None:
@@ -513,6 +543,18 @@ BWD_SWEEP = [
     (3, 1000, 1000, 16, 16, 128, True, 0, torch.bfloat16, "pwl"),
     (2, 200, 1000, 4, 4, 128, False, 0, torch.bfloat16, "exact"),
     (4, 2048, 2048, 16, 16, 128, True, 0, torch.bfloat16, "exact"),  # training shape
+    # The simt pair (fp32; bf16 at d 16 and 32): Sq 1, 17 and 33 around its
+    # 16- and 32-row tiles, Sk off them, GQA rep 2 and 4, q_offset > 0, the
+    # LSE of a PWL forward, not causal with Sq > Sk; then its timed shapes
+    # [1, 256] (16-row tiles on 132 SMs) and [2, 1024] (32-row tiles; the
+    # fp32 gradient check's shape).
+    (3, 1, 17, 4, 4, 64, True, 16, torch.float32, "exact"),
+    (2, 17, 100, 8, 2, 128, True, 83, torch.float32, "pwl"),
+    (1, 33, 33, 8, 4, 128, True, 0, torch.float32, "exact"),
+    (1, 100, 33, 8, 2, 32, False, 0, torch.bfloat16, "pwl"),
+    (2, 17, 50, 4, 1, 16, True, 33, torch.bfloat16, "exact"),
+    (1, 256, 256, 16, 16, 128, True, 0, torch.float32, "exact"),
+    (2, 1024, 1024, 16, 16, 128, True, 0, torch.float32, "exact"),
 ]
 
 
@@ -551,9 +593,17 @@ def _bwd_fp32_p_err(got, ref32, bound):
     return float(err.max()), float((err / tol).max())
 
 
+def simt_tiles(q, k) -> tuple[int, int]:
+    """The simt pair's resident tiles for these inputs on this card."""
+    (b, sq, h, _), (_, sk, hkv, _) = q.shape, k.shape
+    return flash_bwd.simt_bwd_tiles(b, h, hkv, sq, sk, flash._sm_count(q.device))
+
+
 def check_bwd_sweep() -> dict:
     """Largest |kernel - plain| of dQ, and of dK and dV, over the sweep, by
-    pair (and, for sm90, against the fp32-P plain version)."""
+    pair (and, for sm90, against the fp32-P plain version).  The plain
+    version runs at the pair's tiles: for simt, dQ at (its q tile, the
+    streamed 64) and dK/dV at (64, its k tile)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {(pair, key): 0.0 for pair in ("sm90", "simt") for key in ("dq", "dkv", "dq_fp32_p", "dkv_fp32_p")}
     for case in BWD_SWEEP:
@@ -562,7 +612,15 @@ def check_bwd_sweep() -> dict:
         tile = bwd_tile(args[0].dtype, args[0].shape[-1])
         before = dict(flash_bwd.launch_counts)
         got = flash_bwd.flash_attention_bwd(*args, **kw)
-        ref = flash_bwd.flash_attention_bwd_plain(*args, block_q=tile, block_k=tile, **kw)
+        fields = {}
+        if pair is flash_bwd.SIMT:
+            block_q, block_k = simt_tiles(args[0], args[1])
+            ref_dq = flash_bwd.flash_attention_bwd_plain(*args, block_q=block_q, block_k=tile, **kw)
+            ref_dkv = flash_bwd.flash_attention_bwd_plain(*args, block_q=tile, block_k=block_k, **kw)
+            ref = (ref_dq[0], *ref_dkv[1:])
+            fields["tiles"] = dict(block_q=block_q, block_k=block_k)
+        else:
+            ref = flash_bwd.flash_attention_bwd_plain(*args, block_q=tile, block_k=tile, **kw)
         if pair is flash_bwd.SM90:
             ref32 = flash_bwd.flash_attention_bwd_plain(*args, block_q=tile, block_k=tile, fp32_p=True, **kw)
             bounds = flash_bwd.departure_bound(*args, block_q=tile, block_k=tile, **kw)
@@ -591,7 +649,7 @@ def check_bwd_sweep() -> dict:
                 worst[pair.name, key + "_fp32_p"] = max(worst[pair.name, key + "_fp32_p"], err32)
         sm90_tols = {"tol_flips": TOL_BWD_FLIPS, "tol_fp32_p": TOL_BWD_FP32P}
         emit("kernels_bwd", case=str(case[:8] + (str(case[8]), case[9])), kernel=pair.name,
-             tol=TOL_BWD[case[8]], **(sm90_tols if pair is flash_bwd.SM90 else {}), **errs)
+             tol=TOL_BWD[case[8]], **(sm90_tols if pair is flash_bwd.SM90 else {}), **fields, **errs)
     return worst
 
 
@@ -606,26 +664,19 @@ def _bwd_cost(b, s, h, hkv, d, itemsize, products, q_sized, kv_sized):
     return flops, nbytes
 
 
-def _time_bwd_shape(case, peak_flops, plain_iters, gen) -> dict:
-    """One causal backward shape: each kernel of its pair alone, the whole
-    (dQ with delta, then dK/dV), the plain version, SDPA's backward and the
-    bound; event and device (profiler) times, achieved TFLOP/s and the share
-    of the bound, both on the device's clock."""
+def _time_bwd_shape(case, peak_flops, plain_iters, gen, full=True) -> dict:
+    """One causal backward shape: the whole (dQ with delta, then dK/dV) in
+    event and device time, each kernel's device time within it (by the
+    profiler's kernel names), SDPA's backward and the bound; achieved
+    TFLOP/s and the share of the bound on the device's clock.  With
+    ``full`` also the plain version and each kernel launched alone (event
+    and device time); without, only the pair's public entry is called (so
+    that an older checkout can be timed by this script)."""
     b, s, _, h, hkv, d = case[:6]
     (q, k, v, out, lse, do), kw = _bwd_inputs(case, gen)
     pair = flash_bwd.bwd_kernel_for(q.dtype, d)
-    tile = bwd_tile(q.dtype, d)
     whole = lambda: flash_bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw)  # noqa: E731
-    plain_ms = cuda_ms(lambda: flash_bwd.flash_attention_bwd_plain(
-        q, k, v, out, lse, do, block_q=tile, block_k=tile, **kw), iters=plain_iters, warmup=1)
-
-    # Each kernel alone, on buffers laid out as the wrapper lays them out.
-    delta, lse_dkv = flash_bwd._row_stats(pair, lse)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    common = (flash._DTYPE_CODES[q.dtype], b, h, hkv, s, s, d)
-    extra = (0, True, kw["scale"] * LOG2_E, kw["scale"], torch.cuda.current_stream().cuda_stream)
-    run_dq = lambda: flash_bwd._launch_dq(pair, q, k, v, out, do, lse, delta, dq, common, *extra)  # noqa: E731
-    run_dkv = lambda: flash_bwd._launch_dkv(pair, q, k, v, do, lse_dkv, delta, dk, dv, common, *extra)  # noqa: E731
+    ms, by_kernel = cuda_ms(whole), profiled_by_kernel(whole)
 
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
@@ -637,31 +688,81 @@ def _time_bwd_shape(case, peak_flops, plain_iters, gen) -> dict:
     # dQ: S, dP, dQ from q, k, v, o, dO, LSE into dQ and delta.  dK/dV: S,
     # dP, dV, dK from q, k, v, dO, LSE, delta.  Whole: five products (S and
     # dP once), q, k, v, o, dO, LSE, delta in and dQ, dK, dV out.
-    work = (("dq", run_dq, (3, 4, 2)), ("dkv", run_dkv, (4, 2, 4)), ("whole", whole, (5, 4, 4)))
-    for name, fn, (products, q_sized, kv_sized) in work:
-        ms, device_ms = cuda_ms(fn), profiled_ms(fn)
+    work = (("dq", (3, 4, 2)), ("dkv", (4, 2, 4)), ("whole", (5, 4, 4)))
+    for name, (products, q_sized, kv_sized) in work:
+        device_ms = sum(t for n, t in by_kernel.items() if name == "whole" or f"_{name}_kernel" in n)
         flops, nbytes = _bwd_cost(b, s, h, hkv, d, q.element_size(), products, q_sized, kv_sized)
         bound_ms, bound_by = _bound(flops, nbytes, peak_flops)
-        rows[name] = dict(ms=ms, device_ms=device_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+        rows[name] = dict(device_ms=device_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                           bytes=nbytes, device_tflops=flops / device_ms / 1e9,
                           device_share_of_bound=bound_ms / device_ms)
-    rows["whole"].update(vs_library=rows["whole"]["ms"] / library_ms,
+    rows["whole"].update(ms=ms, vs_library=ms / library_ms,
                          device_vs_library=rows["whole"]["device_ms"] / library_device_ms)
     timing = dict(kernel=pair.name, shape=[b, s, h, d], dtype=str(q.dtype).split(".")[1], causal=True,
-                  plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_device_ms, **rows)
+                  library_ms=library_ms, library_device_ms=library_device_ms, **rows)
+    if full:
+        tile = bwd_tile(q.dtype, d)
+        timing["plain_ms"] = cuda_ms(lambda: flash_bwd.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, block_q=tile, block_k=tile, **kw), iters=plain_iters, warmup=1)
+        # Each kernel alone, on buffers laid out as the wrapper lays them out.
+        delta, lse_dkv = flash_bwd._row_stats(pair, lse)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        common = (flash._DTYPE_CODES[q.dtype], b, h, hkv, s, s, d)
+        extra = (0, True, kw["scale"] * LOG2_E, kw["scale"], torch.cuda.current_stream().cuda_stream)
+        tiles = simt_tiles(q, k) if pair is flash_bwd.SIMT else (None, None)
+        alone = dict(
+            dq=lambda: flash_bwd._launch_dq(pair, q, k, v, out, do, lse, delta, dq, common, *extra, tiles[0]),
+            dkv=lambda: flash_bwd._launch_dkv(pair, q, k, v, do, lse_dkv, delta, dk, dv, common, *extra,
+                                              tiles[1]))
+        for name, fn in alone.items():
+            rows[name].update(ms=cuda_ms(fn), alone_device_ms=profiled_ms(fn))
+        if pair is flash_bwd.SIMT:
+            timing["tiles"] = dict(block_q=tiles[0], block_k=tiles[1])
     emit("kernels_bwd", timing=timing)
     return timing
 
 
-def time_bwd() -> dict:
-    """The sm90 pair at the training shape (bf16, the last sweep case; the
-    plain version is slow, so 3 timings) and the simt pair at the fp32
-    gradient phase's shape (bound by the CUDA cores' fp32 rate; SDPA in
-    fp32 as the yardstick)."""
+# The simt pair's timed shapes (B, S), fp32 causal, 16 heads of 128: a
+# short sequence whose 32-row tiles leave SMs idle, the fp32 gradient
+# check's shape (GRADS_BATCH x GRADS_SEQ), and a long sequence.
+SIMT_BWD_TIMED = ((1, 256), (2, 1024), (1, 2048))
+
+
+def time_simt_bwd(full: bool = True) -> list[dict]:
+    """The simt pair at SIMT_BWD_TIMED (bound by the CUDA cores' fp32 rate;
+    SDPA in fp32 as the yardstick); see ``_time_bwd_shape`` for ``full``."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    simt_case = (GRADS_BATCH, GRADS_SEQ, GRADS_SEQ, 16, 16, 128, True, 0, torch.float32, "exact")
-    return dict(sm90=_time_bwd_shape(BWD_SWEEP[-1], PEAK_BF16_FLOPS, 3, gen),
-                simt=_time_bwd_shape(simt_case, PEAK_FP32_FLOPS, 3, gen))
+    return [_time_bwd_shape((b, s, s, 16, 16, 128, True, 0, torch.float32, "exact"),
+                            PEAK_FP32_FLOPS, 3, gen, full) for b, s in SIMT_BWD_TIMED]
+
+
+def time_simt_bwd_tiles() -> list[dict]:
+    """Device time of each simt kernel at the first timed shape with each
+    resident tile (the q tile of dQ, the k tile of dK/dV), the chosen one
+    and the other."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, s = SIMT_BWD_TIMED[0]
+    (q, k, v, out, lse, do), kw = _bwd_inputs((b, s, s, 16, 16, 128, True, 0, torch.float32, "exact"), gen)
+    chosen = simt_tiles(q, k)
+    rows = []
+    for tile in flash_bwd.SIMT_BWD_TILES:
+        by_kernel = profiled_by_kernel(lambda: flash_bwd._launch(q, k, v, out, lse, do, tiles=(tile, tile), **kw))
+        row = dict(shape=[b, s, 16, 128], tile=tile, chosen=dict(block_q=chosen[0], block_k=chosen[1]),
+                   **{f"{name}_device_ms": sum(t for n, t in by_kernel.items() if f"_{name}_kernel" in n)
+                      for name in ("dq", "dkv")})
+        emit("kernels_bwd", simt_tiles=row)
+        rows.append(row)
+    return rows
+
+
+def time_bwd() -> dict:
+    """The sm90 pair at the training shape (bf16, the last sm90 sweep case;
+    the plain version is slow, so 3 timings) and the simt pair at its timed
+    shapes and tiles."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    training = next(c for c in BWD_SWEEP if c[0] == 4 and c[1] == 2048)
+    return dict(sm90=_time_bwd_shape(training, PEAK_BF16_FLOPS, 3, gen),
+                simt=time_simt_bwd(), simt_tiles=time_simt_bwd_tiles())
 
 
 # -- phase 5: the standalone PWL exp2 kernel ----------------------------------------
@@ -1084,6 +1185,33 @@ def simt_ptxas(log: str) -> list[dict]:
     return _ptxas_frames(log, r"16flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", fields)
 
 
+def simt_bwd_ptxas(log: str) -> list[dict]:
+    """Registers, stack and spills of each SIMT backward instantiation
+    (flash_bwd_dq_kernel<T, D, R> and flash_bwd_dkv_kernel<T, D, R>, R the
+    resident tile), from ptxas -v."""
+    def fields(entry):
+        return dict(kernel=entry.group(1)[2:], dtype="float32" if entry.group(2) == "f" else "bfloat16",
+                    head_dim=int(entry.group(3)), tile=int(entry.group(4)))
+    return _ptxas_frames(
+        log, r"(19flash_bwd_dq_kernel|20flash_bwd_dkv_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", fields)
+
+
+def simt_bwd_ctas_per_sm(rows: list[dict]) -> None:
+    """Add to each row of ``simt_bwd_ptxas`` the CTAs of that instantiation
+    an SM holds at once (flash_bwd_ctas_per_sm: the occupancy API, with the
+    kernel's shared memory)."""
+    fn = flash_bwd._library(flash_bwd.SIMT.library).flash_bwd_ctas_per_sm
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for row in rows:
+        ctas = ctypes.c_int(0)
+        err = fn(int(row["kernel"] == "flash_bwd_dq_kernel"), flash._DTYPE_CODES[getattr(torch, row["dtype"])],
+                 row["head_dim"], row["tile"], ctypes.byref(ctas))
+        if err:
+            raise RuntimeError(f"flash_bwd_ctas_per_sm failed for {row}: error {err}")
+        row["ctas_per_sm"] = ctas.value
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1103,21 +1231,30 @@ def main() -> None:
          ptxas=ptxas)
     if sys.argv[1:] == ["--time-simt"]:
         time_flash_simt()
+        time_simt_bwd(full=False)
         return
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--time-simt]")
     sm90 = sm90_ptxas(libs["flash_fwd_sm90"].with_suffix(".log").read_text())
     sm90_bwd = sm90_ptxas(libs["flash_bwd_sm90"].with_suffix(".log").read_text())
     simt = simt_ptxas(libs["flash_fwd"].with_suffix(".log").read_text())
-    # flash_fwd_kernel<T, D, BQ>: each (dtype, head_dim) KERNELS gives it, each q tile.
+    simt_bwd = simt_bwd_ptxas(libs["flash_bwd"].with_suffix(".log").read_text())
+    simt_bwd_ctas_per_sm(simt_bwd)
+    # flash_fwd_kernel<T, D, BQ>: each (dtype, head_dim) KERNELS gives it, each q tile;
+    # flash_bwd_{dq,dkv}_kernel<T, D, R>: each (dtype, head_dim) BWD_KERNELS gives the
+    # simt pair, each resident tile.
     simt_instances = len(flash.SIMT_Q_TILES) * sum(k is flash.SIMT for k in flash.KERNELS.values())
-    emit("build", flash_fwd_sm90=sm90, flash_bwd_sm90=sm90_bwd, flash_fwd=simt)
+    simt_bwd_instances = 2 * len(flash_bwd.SIMT_BWD_TILES) * sum(
+        k is flash_bwd.SIMT for k in flash_bwd.BWD_KERNELS.values())
+    emit("build", flash_fwd_sm90=sm90, flash_bwd_sm90=sm90_bwd, flash_fwd=simt, flash_bwd=simt_bwd)
     if len(sm90) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in sm90 if r["head_dim"] == 128):
         raise AssertionError(f"flash_fwd_sm90 instantiations missing or spilling at d = 128: {sm90}")
     if len(sm90_bwd) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in sm90_bwd):
         raise AssertionError(f"flash_bwd_sm90 instantiations missing or spilling: {sm90_bwd}")
     if len(simt) != simt_instances or any(r["spill_stores"] or r["spill_loads"] for r in simt):
         raise AssertionError(f"flash_fwd (simt) instantiations missing or spilling: {simt}")
+    if len(simt_bwd) != simt_bwd_instances or any(r["spill_stores"] or r["spill_loads"] for r in simt_bwd):
+        raise AssertionError(f"flash_bwd (simt) instantiations missing or spilling: {simt_bwd}")
 
     sweep_err = check_flash_sweep()
     check_pwl_subnormal_range()
@@ -1178,18 +1315,22 @@ def main() -> None:
     # Each backward kernel is timed alone; the plain version and SDPA's
     # backward compute dQ, dK and dV together, so theirs are the whole's.
     # The sm90 pair runs on the bf16 main path (train; the bf16 gradient
-    # check), the simt pair on the fp32 gradient check.
+    # check), the simt pair on the fp32 gradient check (its records at that
+    # shape, every timed shape in by_shape).
+    simt_grads = next(r for r in bwd_timing["simt"] if r["shape"] == [GRADS_BATCH, GRADS_SEQ, 16, 128])
     bwd_pairs = (
         ("", flash_bwd.SM90, "sm90: wgmma + TMA, producer/consumer warpgroups (bf16, d 64 and 128)",
          "flash_bwd_sm90.cu", dict(train=trained["launches"], grads_bfloat16=graded["launches"]["bfloat16"]),
          {"bfloat16": TOL_BWD[torch.bfloat16], "bfloat16_flips": TOL_BWD_FLIPS,
-          "bfloat16_vs_fp32_p": TOL_BWD_FP32P}),
-        ("_simt", flash_bwd.SIMT, "simt: fp32 FMAs on the CUDA cores (fp32; bf16 at d 16 and 32)",
+          "bfloat16_vs_fp32_p": TOL_BWD_FP32P}, bwd_timing["sm90"], sm90_bwd, {}),
+        ("_simt", flash_bwd.SIMT,
+         "simt: register-blocked fp32 FMAs on the CUDA cores, staggered cp.async loads, two CTAs an SM, "
+         "resident tile 32 or 16 (fp32; bf16 at d 16 and 32)",
          "flash_bwd.cu", dict(grads_float32=graded["launches"]["float32"]),
-         {"float32": TOL_BWD[torch.float32], "bfloat16": TOL_BWD[torch.bfloat16]}),
+         {"float32": TOL_BWD[torch.float32], "bfloat16": TOL_BWD[torch.bfloat16]}, simt_grads, simt_bwd,
+         dict(by_shape=bwd_timing["simt"], by_tile=bwd_timing["simt_tiles"])),
     )
-    for suffix, pair, variant, source, by_path, tol in bwd_pairs:
-        timing = bwd_timing[pair.name]
+    for suffix, pair, variant, source, by_path, tol, timing, ptxas_rows, more in bwd_pairs:
         for key, entry, line in (("dq", pair.entries[0], 48), ("dkv", pair.entries[1], 81)):
             row = timing[key]
             launches_by_path = {path: counts[entry] for path, counts in by_path.items()}
@@ -1201,12 +1342,11 @@ def main() -> None:
                 replaces=f"src/repro/kernels/flash_attention/kernel_bwd.py:{line}",
                 launches=next(iter(launches_by_path.values())), launches_by_path=launches_by_path,
                 max_abs_err=bwd_err[pair.name, key], **extra, tol=tol,
-                ms=row["ms"], device_ms=row["device_ms"], plain_ms=timing["plain_ms"],
-                bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=timing["library_ms"],
-                library_device_ms=timing["library_device_ms"], shape=timing["shape"],
-                dtype=timing["dtype"], whole_backward=timing["whole"],
-                **({"ptxas": [r for r in sm90_bwd if r["kernel"] == f"{entry}_kernel"]}
-                   if pair is flash_bwd.SM90 else {}),
+                ms=row["ms"], device_ms=row["device_ms"], alone_device_ms=row["alone_device_ms"],
+                plain_ms=timing["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=timing["library_ms"], library_device_ms=timing["library_device_ms"],
+                shape=timing["shape"], dtype=timing["dtype"], whole_backward=timing["whole"],
+                ptxas=[r for r in ptxas_rows if r["kernel"] == f"{entry}_kernel"], **more,
             ))
     path_size = next(r for r in pwl_timing if r["elements"] == PWL_SIZES[0])
     records.append(dict(

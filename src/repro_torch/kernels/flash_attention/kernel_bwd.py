@@ -23,13 +23,20 @@ choice implies:
   and dK = dS^T Q (both computed in fp32 from the fp32 S and dP;
   departure (e), ROADMAP queue 3);
 * ``SIMT`` (``flash_bwd.cu``) for fp32 at d 16 to 128 and bf16 at d 16
-  and 32: fp32 FMAs on the CUDA cores, P and dS kept in fp32.
+  and 32: register-blocked fp32 FMAs on the CUDA cores, P and dS kept in
+  fp32 (the reference's numerics), two CTAs an SM, each loading its
+  streamed 64-row tiles by cp.async while a product that does not read
+  them runs; a resident tile of 32 or 16 rows (the q tile of dQ, the k tile
+  of dK/dV) that the wrapper chooses per call (``simt_bwd_tiles``: 16 where
+  32 would leave SMs idle).
 
 Nothing falls back: a CUDA tensor the chosen pair cannot take raises. The
 plain version mirrors the pair that ``BWD_KERNELS`` gives its inputs: it
 rounds P and dS where that pair does (``fp32_p=True`` keeps the
 reference's fp32 numerics). ``block_q`` and ``block_k`` set its tiles; the
-kernels' are fixed (``bwd_tile``).
+kernels' streamed tiles are fixed (``bwd_tile``), and the SIMT pair's
+resident tiles vary (``simt_bwd_tiles``). Tiles change only the order of
+the fp32 sums: masked entries give P = 0 exactly, on any tiling.
 
 GQA (departure (b) from the reference, ROADMAP queue 3): the reference
 rounds each q head's dK/dV partial to k's dtype and then sums the group;
@@ -51,16 +58,17 @@ from repro_torch.core.attention import NEG_INF, _pad_seq
 from repro_torch.core.pwl_exp2 import LOG2_E
 from repro_torch.kernels import _build
 from .kernel import (
-    DEFAULT_BLOCK_K, DEFAULT_BLOCK_Q, HEAD_DIMS, _DTYPE_CODES, _check_layout, check_tma_layout, is_dense,
+    DEFAULT_BLOCK_K, DEFAULT_BLOCK_Q, HEAD_DIMS, _DTYPE_CODES, _sm_count, check_tma_layout, is_dense,
 )
 
 
 class BwdKernel(NamedTuple):
     """One backward pair: its name, its library, its C entry points (dQ
-    with delta, then dK/dV; each pair takes flash_bwd.cu's arguments, and
-    the entry names are the keys of ``launch_counts``), its tile (the plain
-    version's when held against it: the k tile of dQ, the q tile of dK/dV),
-    and the dtype it rounds P and dS to for their products (None: fp32)."""
+    with delta, then dK/dV; each pair takes flash_bwd.cu's arguments, the
+    SIMT pair its resident tile after them, and the entry names are the
+    keys of ``launch_counts``), its streamed tile (the plain version's when
+    held against it: the k tile of dQ, the q tile of dK/dV), and the dtype
+    it rounds P and dS to for their products (None: fp32)."""
 
     name: str
     library: str
@@ -111,9 +119,24 @@ def bwd_kernel_for(dtype: torch.dtype, head_dim: int) -> BwdKernel:
 
 
 def bwd_tile(dtype: torch.dtype, head_dim: int) -> int:
-    """The tile of the pair that takes ``(dtype, head_dim)``: the plain
-    version's tiles when it is held against that pair."""
+    """The streamed tile of the pair that takes ``(dtype, head_dim)``: the
+    plain version's tiles when it is held against that pair (the SIMT
+    pair's other tiles: ``simt_bwd_tiles``)."""
     return bwd_kernel_for(dtype, head_dim).tile
+
+
+SIMT_BWD_TILES = (32, 16)
+
+
+def simt_bwd_tiles(batch: int, heads: int, kv_heads: int, seq_q: int, seq_k: int,
+                   sms: int) -> tuple[int, int]:
+    """The SIMT pair's resident tiles ``(block_q, block_k)``: the q tile of
+    dQ (one CTA per (b*h, q tile)) and the k tile of dK/dV (one CTA per
+    (b, kv head, k tile)), each 32 rows, or 16 where 32-row tiles give fewer
+    CTAs than the card has SMs."""
+    def tile(rows: int, seq: int) -> int:
+        return 32 if rows * -(-seq // 32) >= sms else 16
+    return tile(batch * heads, seq_q), tile(batch * kv_heads, seq_k)
 
 
 def flash_attention_bwd(
@@ -132,8 +155,8 @@ def flash_attention_bwd(
 ):
     """``(dq, dk, dv)`` in the dtypes of ``q``, ``k`` and ``v``.
 
-    ``block_q`` and ``block_k`` set the plain version's tiles; the kernels'
-    are fixed (``bwd_tile``)."""
+    ``block_q`` and ``block_k`` set the plain version's tiles; the kernels
+    choose their own (``bwd_tile``, ``simt_bwd_tiles``)."""
     if not q.shape[2] % k.shape[2] == 0:
         raise ValueError(f"heads {q.shape[2]} not a multiple of kv heads {k.shape[2]}")
     if scale is None:
@@ -248,11 +271,16 @@ def _library(name: str) -> ctypes.CDLL:
     dq, dkv = (getattr(lib, entry) for entry in kernel.entries)
     dq.argtypes = [p] * 8 + [i] * 7 + [ll] * 5 + [i, i, f, f, p]
     dkv.argtypes = [p] * 8 + [i] * 7 + [ll] * 4 + [i, i, f, f, p]
+    if kernel is SIMT:  # the resident tile
+        dq.argtypes.append(i)
+        dkv.argtypes.append(i)
     dq.restype = dkv.restype = ctypes.c_int
     return lib
 
 
-def _launch(q, k, v, out, lse, do, *, causal, scale, q_offset):
+def _launch(q, k, v, out, lse, do, *, causal, scale, q_offset, tiles=None):
+    """Launch the pair that ``BWD_KERNELS`` gives the inputs; ``tiles``
+    overrides ``simt_bwd_tiles`` for the SIMT pair (to time each tile)."""
     batch, sq, heads, d = q.shape
     _, sk, kv_heads, _ = k.shape
     if q.dtype not in _DTYPE_CODES or not q.dtype == k.dtype == v.dtype == out.dtype == do.dtype:
@@ -271,6 +299,13 @@ def _launch(q, k, v, out, lse, do, *, causal, scale, q_offset):
     if sq < 1 or sk < 1 or q_offset < 0:
         raise ValueError(f"need Sq >= 1, Sk >= 1, q_offset >= 0: {sq}, {sk}, {q_offset}")
     do = check_layouts(kernel, q, k, v, out, do)
+    if kernel is SIMT:
+        if tiles is None:
+            tiles = simt_bwd_tiles(batch, heads, kv_heads, sq, sk, _sm_count(q.device))
+        if not all(t in SIMT_BWD_TILES for t in tiles):
+            raise ValueError(f"SIMT backward tiles must be in {SIMT_BWD_TILES}: {tiles}")
+    else:
+        tiles = (None, None)
 
     delta, lse_dkv = _row_stats(kernel, lse)
     dq = torch.empty((batch, sq, heads, d), dtype=q.dtype, device=q.device)
@@ -280,23 +315,24 @@ def _launch(q, k, v, out, lse, do, *, causal, scale, q_offset):
     c = scale * LOG2_E
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch_dq(kernel, q, k, v, out, do, lse, delta, dq, common, q_offset, causal, c, scale, stream)
-        _launch_dkv(kernel, q, k, v, do, lse_dkv, delta, dk, dv, common, q_offset, causal, c, scale, stream)
+        _launch_dq(kernel, q, k, v, out, do, lse, delta, dq, common, q_offset, causal, c, scale, stream,
+                   tiles[0])
+        _launch_dkv(kernel, q, k, v, do, lse_dkv, delta, dk, dv, common, q_offset, causal, c, scale, stream,
+                    tiles[1])
     return dq, dk, dv
 
 
 def check_layouts(kernel: BwdKernel, q, k, v, out, do) -> torch.Tensor:
     """Raise ``ValueError`` unless ``kernel`` can take these ``[B, S, H, d]``
-    tensors (dense ``[S, H, d]`` inner dims; for ``SM90`` also what a TMA
-    tensor map needs, ``check_tma_layout``); return dO, made dense
+    tensors: what a TMA tensor map (``SM90``) and 16-byte ``cp.async``
+    copies (``SIMT``) need, ``check_tma_layout``; return dO, made dense
     first if it was not (autograd may hand over an expanded or permuted
     view). Reads only shapes, strides and addresses, so it runs on CPU
     tensors too."""
     if not is_dense(do):
         do = do.contiguous()
-    check = check_tma_layout if kernel is SM90 else _check_layout
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("do", do)):
-        check(name, t)
+        check_tma_layout(name, t)
     return do
 
 
@@ -317,28 +353,33 @@ def _row_stats(kernel: BwdKernel, lse: torch.Tensor):
 def _check(entry: str, err: int) -> None:
     if err != 0:
         # flash_bwd_sm90.cu: 900, libcuda has no cuTensorMapEncodeTiled;
-        # 1000 + CUresult, libcuda refused a tensor map.
+        # 1000 + CUresult, libcuda refused a tensor map. flash_bwd.cu: 716,
+        # a base or batch stride off 16 bytes.
         raise RuntimeError(f"{entry} kernel launch failed: error {err}")
     launch_counts[entry] += 1
 
 
-def _launch_dq(kernel, q, k, v, out, do, lse, delta, dq, common, q_offset, causal, c, scale, stream):
+def _launch_dq(kernel, q, k, v, out, do, lse, delta, dq, common, q_offset, causal, c, scale, stream,
+               tile=None):
+    """The dQ kernel of ``kernel``; ``tile``: the SIMT pair's q tile."""
     entry = kernel.entries[0]
     err = getattr(_library(kernel.library), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common,
         q.stride(0), k.stride(0), v.stride(0), out.stride(0), do.stride(0),
-        q_offset, int(causal), c, scale, stream,
+        q_offset, int(causal), c, scale, stream, *(() if tile is None else (tile,)),
     )
     _check(entry, err)
 
 
-def _launch_dkv(kernel, q, k, v, do, lse, delta, dk, dv, common, q_offset, causal, c, scale, stream):
+def _launch_dkv(kernel, q, k, v, do, lse, delta, dk, dv, common, q_offset, causal, c, scale, stream,
+                tile=None):
+    """The dK/dV kernel of ``kernel``; ``tile``: the SIMT pair's k tile."""
     entry = kernel.entries[1]
     err = getattr(_library(kernel.library), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common,
         q.stride(0), k.stride(0), v.stride(0), do.stride(0),
-        q_offset, int(causal), c, scale, stream,
+        q_offset, int(causal), c, scale, stream, *(() if tile is None else (tile,)),
     )
     _check(entry, err)

@@ -303,6 +303,79 @@ def test_flash_bwd_sm90_matches_plain(cuda_device, case):
         assert bool(((g.float() - r32.float()).abs() <= tol).all())
 
 
+def _bwd_args(shape_q, shape_kv, device, dtype, causal, q_offset, exp2_impl, seed=0):
+    """q, k, v, the forward's output and LSE (from the kernel), dO; the
+    backward's keywords."""
+    q, k, v = _qkv(shape_q, shape_kv, device, dtype, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+    kw = dict(causal=causal, scale=shape_q[-1] ** -0.5, q_offset=q_offset)
+    out, lse = flash_kernel.flash_attention_fwd(q, k, v, exp2_impl=exp2_impl, return_lse=True, **kw)
+    return (q, k, v, out, lse, do), kw
+
+
+@pytest.mark.parametrize("tiles", [(32, 32), (16, 16)])
+@pytest.mark.parametrize("seq_q", [1, 17, 33, 100])
+@pytest.mark.parametrize("dtype,head_dim", [
+    (torch.float32, 16), (torch.float32, 32), (torch.float32, 64), (torch.float32, 128),
+    (torch.bfloat16, 16), (torch.bfloat16, 32),
+])
+def test_flash_bwd_simt_matches_plain(cuda_device, dtype, head_dim, seq_q, tiles):
+    """The SIMT pair at each of its resident tiles against the plain version
+    at the tiles it ran (dQ at (q tile, 64), dK/dV at (64, k tile)): Sq and
+    Sk around the tiles, GQA rep 2 (d 16, 64) and 4 (d 32, 128), q_offset
+    37, B = 2, the LSE of a PWL forward at Sq 17 and 100, not causal at Sq
+    33; fp32 at 1e-4 + 1e-5 relative, bf16 at one bf16 step."""
+    kv_heads = 4 if head_dim in (16, 64) else 2
+    causal = seq_q != 33
+    args, kw = _bwd_args((2, seq_q, 8, head_dim), (2, seq_q + 37, kv_heads, head_dim), cuda_device, dtype,
+                         causal, 37 if causal else 0, "pwl" if seq_q in (17, 100) else "exact", seed=seq_q)
+    before = dict(kernel_bwd.launch_counts)
+    got = kernel_bwd._launch(*args, tiles=tiles, **kw)
+    torch.cuda.synchronize()
+    assert kernel_bwd.launch_counts == dict(
+        before, flash_bwd_dq=before["flash_bwd_dq"] + 1, flash_bwd_dkv=before["flash_bwd_dkv"] + 1)
+    streamed = kernel_bwd.SIMT.tile
+    ref_dq = kernel_bwd.flash_attention_bwd_plain(*args, block_q=tiles[0], block_k=streamed, **kw)[0]
+    ref_dk, ref_dv = kernel_bwd.flash_attention_bwd_plain(*args, block_q=streamed, block_k=tiles[1], **kw)[1:]
+    for g, r in zip(got, (ref_dq, ref_dk, ref_dv)):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), r.float(), **_bwd_tol(dtype))
+
+
+def test_flash_bwd_simt_is_deterministic(cuda_device):
+    """No atomics: two calls give the same bits (fp32, GQA rep 2, causal,
+    both tilings)."""
+    args, kw = _bwd_args((2, 300, 8, 128), (2, 300, 4, 128), cuda_device, torch.float32, True, 0, "exact")
+    for tiles in ((32, 32), (16, 16)):
+        first = kernel_bwd._launch(*args, tiles=tiles, **kw)
+        second = kernel_bwd._launch(*args, tiles=tiles, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("bad", ["misaligned_do", "misaligned_out", "k_batch_stride"])
+def test_flash_bwd_simt_refuses_misaligned_inputs(cuda_device, bad):
+    """fp32 at d 64 (the SIMT pair): a base 4 bytes past a 16-byte boundary,
+    or a batch stride that is not whole 16-byte units, which its cp.async
+    copies cannot read, raises ValueError; nothing launches."""
+    args, kw = _bwd_args((2, 64, 2, 64), (2, 64, 2, 64), cuda_device, torch.float32, True, 0, "exact")
+    q, k, v, out, lse, do = args
+    misaligned = lambda t: torch.zeros(t.numel() + 4, device=cuda_device)[1:t.numel() + 1].view(t.shape)  # noqa: E731
+    if bad == "misaligned_do":
+        do = misaligned(do)
+    elif bad == "misaligned_out":
+        out = misaligned(out)
+    else:
+        buf = torch.zeros(2 * 64 * 2 * 64 + 1, device=cuda_device)
+        k = torch.as_strided(buf, (2, 64, 2, 64), (64 * 2 * 64 + 1, 2 * 64, 64, 1))
+    assert kernel_bwd.bwd_kernel_for(q.dtype, 64) is kernel_bwd.SIMT
+    before = dict(kernel_bwd.launch_counts)
+    with pytest.raises(ValueError):
+        kernel_bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert kernel_bwd.launch_counts == before
+
+
 @pytest.mark.parametrize("dtype,head_dim,pair", [
     (torch.float32, 64, "simt"),
     (torch.bfloat16, 32, "simt"),

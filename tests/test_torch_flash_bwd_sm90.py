@@ -173,14 +173,18 @@ def _misaligned(t):
     ("sm90", "misaligned_out", False),
     ("sm90", "misaligned_k_batch_stride", False),
     ("sm90", "not_dense_q", False),
-    ("simt", "misaligned_do", True),
+    ("simt", None, True),
+    ("simt", "expanded_do", True),
+    ("simt", "misaligned_do", False),
+    ("simt", "misaligned_out", False),
+    ("simt", "misaligned_k_batch_stride", False),
     ("simt", "not_dense_q", False),
 ])
 def test_layout_checks(pair, bad, ok):
-    """What each pair takes, checked on CPU tensors: the sm90 pair needs what
-    a TMA tensor map can describe (16-byte base and strides) of q, k, v, out
-    and dO; an expanded dO (the gradient of ``out.sum()``) is made dense
-    first; the simt pair needs dense inner dims only."""
+    """What each pair takes, checked on CPU tensors: both need what a TMA
+    tensor map (the sm90 pair) and 16-byte cp.async copies (the simt pair)
+    can read, 16-byte bases and strides of q, k, v, out and dO; an expanded
+    dO (the gradient of ``out.sum()``) is made dense first."""
     kernel = kernel_bwd.SM90 if pair == "sm90" else kernel_bwd.SIMT
     q, k, v, out, do = _bshd(2, 100, 4, 64), _bshd(2, 100, 2, 64), _bshd(2, 100, 2, 64), \
         _bshd(2, 100, 4, 64), _bshd(2, 100, 4, 64)

@@ -1,9 +1,13 @@
 """repro_torch.models.model against repro.models.model on bridged weights.
 
-olmo-1b (non-parametric LayerNorm, tied embeddings) and yi-9b (RMSNorm, GQA
-with rep 2) smoke configs, fp32 on the CPU.  Logits and caches are held at
-1e-4: both sides compute in fp32, but matmul sums run in another order and
-the differences pass through two layers and the LM head.
+Smoke configs, fp32 on the CPU: olmo-1b (non-parametric LayerNorm, tied
+embeddings), yi-9b (RMSNorm, GQA with rep 2), nemotron-4-15b (squared ReLU,
+LayerNorm), qwen2.5-32b (qkv bias) and qwen2-vl-7b (M-RoPE; its forward
+takes positions whose three sections differ) through the forward, prefill
+and decode; hubert-xlarge (the encoder family: frame embeddings in,
+bidirectional attention) through the forward.  Logits and caches are held
+at 1e-4: both sides compute in fp32, but matmul sums run in another order
+and the differences pass through two layers and the LM head.
 """
 
 import numpy as np
@@ -21,7 +25,7 @@ from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["olmo-1b", "yi-9b"]
+ARCHS = ["olmo-1b", "yi-9b", "nemotron-4-15b", "qwen2.5-32b", "qwen2-vl-7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -50,8 +54,26 @@ def test_bridge_keeps_structure(setup):
 def test_forward_logits(setup):
     jcfg, tcfg, jparams, tparams = setup
     tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 21)).astype(np.int32)
-    ref = jm.forward(jparams, jcfg, tokens=jnp.asarray(tokens))
-    _close(tm.forward(tparams, tcfg, tokens=torch.from_numpy(tokens)), ref)
+    kw = {}
+    if jcfg.mrope_sections is not None:
+        # M-RoPE: temporal, height and width positions, each section its own.
+        s = np.arange(21, dtype=np.int32)
+        pos = np.stack([s, s // 3 + 2, s % 5], axis=-1)
+        kw = dict(positions=np.broadcast_to(pos, (2, 21, 3)).copy())
+    ref = jm.forward(jparams, jcfg, tokens=jnp.asarray(tokens), **{k: jnp.asarray(v) for k, v in kw.items()})
+    out = tm.forward(tparams, tcfg, tokens=torch.from_numpy(tokens), **{k: torch.from_numpy(v) for k, v in kw.items()})
+    _close(out, ref)
+
+
+def test_encoder_forward_logits():
+    """hubert-xlarge: frame embeddings in, bidirectional attention, logits
+    over its cluster labels (the encoder family has no decode cache)."""
+    jcfg, tcfg = jax_smoke_config("hubert-xlarge"), get_smoke_config("hubert-xlarge")
+    jparams = jm.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    embeds = np.random.default_rng(0).standard_normal((2, 21, jcfg.d_model)).astype(np.float32)
+    ref = jm.forward(jparams, jcfg, embeds=jnp.asarray(embeds))
+    _close(tm.forward(tparams, tcfg, embeds=torch.from_numpy(embeds)), ref)
 
 
 @pytest.mark.parametrize("chunk_size", [None, 4])
