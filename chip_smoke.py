@@ -24,13 +24,15 @@ non-zero):
                16- and 32-row q tiles), q_offset > 0, exact/PWL exp2 with K 8
                and 4, LSE, a strided KV cache, B up to 4, and the main
                path's training, chunked-prefill, fp32 greedy-prefill and
-               fp32 gradient-check shapes); the kernel that
+               fp32 gradient-check shapes, and GQA rep 16, qwen3-moe's 64
+               q heads over 4 kv heads, in bf16 and fp32); the kernel that
                takes each case (kernel.KERNELS: "sm90" for bf16 at d 64 and
                128, "simt" otherwise) is held against the plain version that
                rounds P as it does, and the sm90 kernel also against the
                fp32-P plain version within the bound of P's rounding
                (TOL_FP32P, element by element).  Then the sm90
-               kernel is timed at the serving and training shapes, and the
+               kernel is timed at the serving and training shapes and at
+               qwen3-moe's 2048-token prefill (rep 16), and the
                simt kernel at the fp32 greedy phase's two prefill buckets,
                the largest fp32 serving bucket and the gradient check's
                forward (with LSE), in event and device time, beside the
@@ -42,8 +44,9 @@ non-zero):
                over a sweep (fp32/bf16, causal or not, GQA rep 2 and 4,
                ragged Sq and Sk (Sq 1, 17, 33 around the simt pair's
                tiles), q_offset > 0, an LSE from a PWL forward, B = 3, d 16
-               to 128, the training shape, and the simt pair at its timed
-               shapes); the pair that takes each case
+               to 128, the training shape, the simt pair at its timed
+               shapes, and rep 16 in bf16 and fp32); the pair that takes
+               each case
                (kernel_bwd.BWD_KERNELS: "sm90" for bf16 at d 64 and 128,
                "simt" otherwise) must launch once per kernel and is held
                against the plain version that rounds P and dS as it does
@@ -53,7 +56,9 @@ non-zero):
                also against the fp32-P plain version within the bound of
                that rounding (TOL_BWD_FP32P beside
                kernel_bwd.departure_bound, element by element).  Then the
-               sm90 pair is timed at the training shape and the simt pair
+               sm90 pair is timed at the training shape and at rep 16
+               ([1, 2048, 64/4, 128]: dK/dV gets 4 kv heads' CTAs), the
+               simt pair
                at [1, 256], [2, 1024] (the fp32 gradient check's shape) and
                [1, 2048], fp32 causal, 16 heads of 128: each kernel alone
                and the whole, in event and device time (each kernel's share
@@ -97,6 +102,21 @@ non-zero):
                launch per distinct segment count (the Fig. 12 sweeps).  Both
                must pass their paper and simulator checks, and the paper
                point's Fig. 12 MRE must equal the plain CPU value.
+ 11. moe     — (runs before tune) the MoE and int8 slice: int8_dot and
+               int8_dot_batched on the card at qwen3-moe's prefill and
+               decode shapes against the CPU version, int32 accumulators
+               and outputs bit for bit; qwen3-moe-235b-a22b at full width,
+               depth 4, bf16: moe_forward twice bit-equal, then served as
+               in phase 6 under --quant none and int8 (all prefill
+               launches sm90 at GQA rep 16; MoE calls by mode, the share of
+               copies dropped, _int_mm calls and peak memory per run;
+               prefill logits against the naive path); depth 2 in fp32
+               with capacity_factor E / k (nothing drops): greedy tokens
+               equal to sequential decode, all simt; depth 1 in fp32,
+               batch 1 x 512: gradients against the naive path (the simt
+               forward and pair); arctic-480b at full width, depth 1, bf16:
+               prefill logits against the naive path, then 4 decode steps
+               (the dense residual).  Each model is freed before the next.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -137,8 +157,12 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd  # noqa: E402
 from repro_torch.kernels.pwl_exp2 import kernel as pwl  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.attention import attention_forward  # noqa: E402
+from repro_torch.models.layers import apply_norm  # noqa: E402
 from repro_torch.models.model import decode_step, init_cache, init_params, prefill_step  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
+from repro_torch.quant import QUANT_FLAGS, int8_dot, int8_dot_batched, parse_quant, quantize  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     Request,
     ServeEngine,
@@ -181,6 +205,12 @@ bwd_tile = flash_bwd.bwd_tile
 # (2**-9 relative) a few times; 5e-2 is ~25 such roundings.
 TOL_PREFILL_REL = 5e-2
 NEAR_TIE = 1e-3
+# A MoE model's routing near-tie: the reference path's smallest router
+# margin (k-th minus (k+1)-th probability) before the first difference.  In
+# fp32 the two paths' MoE inputs differ by the rounding of their sums, about
+# 1e-6 of values of order 1 (an estimate), which moves a router probability
+# of about 1/128 by about 1e-8; 1e-7 is ten times that.
+ROUTER_NEAR_TIE = 1e-7
 
 
 def emit(phase: str, **fields) -> None:
@@ -301,6 +331,10 @@ SWEEP = [
     (1, 64, 64, 16, 16, 128, True, 0, torch.float32, "exact", 8, False, 512),
     (1, 256, 256, 16, 16, 128, True, 0, torch.float32, "exact", 8, False, 512),
     (2, 1024, 1024, 16, 16, 128, True, 0, torch.float32, "exact", 8, True, None),
+    # GQA rep 16 (qwen3-moe's 64 q heads over 4 kv heads): the sm90 kernel
+    # in bf16 and the simt kernel in fp32.
+    (1, 512, 512, 64, 4, 128, True, 0, torch.bfloat16, "exact", 8, True, None),
+    (1, 256, 256, 64, 4, 128, True, 0, torch.float32, "exact", 8, True, None),
 ]
 
 
@@ -409,10 +443,10 @@ def check_pwl_subnormal_range() -> None:
         raise AssertionError(f"PWL exp2 differs from the plain version on {differ} rows")
 
 
-def _attention_cost(b, s, h, d, itemsize):
+def _attention_cost(b, s, h, d, itemsize, hkv=None):
     pairs = s * (s + 1) // 2  # causal: what this run's rows see
     flops = 4 * d * pairs * h * b
-    nbytes = 4 * b * s * h * d * itemsize  # q, k, v read once; o written once
+    nbytes = 2 * b * s * (h + (hkv or h)) * d * itemsize  # q, k, v read once; o written once
     return flops, nbytes
 
 
@@ -422,25 +456,29 @@ def _bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _time_forward(b, s, h, d, dtype, lse, plain_iters, gen, peak_flops):
-    """One causal forward shape: the kernel, its plain version, SDPA and the
+def _time_forward(b, s, h, d, dtype, lse, plain_iters, gen, peak_flops, hkv=None):
+    """One causal forward shape (``hkv`` kv heads, default ``h``): the
+    kernel, its plain version, SDPA (``enable_gqa`` under GQA) and the
     bound; achieved TFLOP/s and the share of the bound the kernel reaches."""
-    q, k, v = (_randn((b, s, h, d), gen, dtype) for _ in range(3))
+    hkv = hkv or h
+    q = _randn((b, s, h, d), gen, dtype)
+    k, v = (_randn((b, s, hkv, d), gen, dtype) for _ in range(2))
     kw = dict(causal=True, scale=1.0 / math.sqrt(d), q_offset=0,
               exp2_impl="exact", num_segments=8, return_lse=lse)
     tile = fwd_tile(dtype, d)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     kernel = lambda: flash.flash_attention_fwd(q, k, v, **kw)  # noqa: E731
-    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=hkv != h)  # noqa: E731
     ms, kernel_device_ms = cuda_ms(kernel), profiled_ms(kernel)
     plain_ms = cuda_ms(lambda: flash.flash_attention_fwd_plain(
         q, k, v, block_q=tile, block_k=tile, **kw), iters=plain_iters, warmup=1)
     library_ms = cuda_ms(library)
     library_device_ms, library_kernels = profiled(library)
-    flops, nbytes = _attention_cost(b, s, h, d, q.element_size())
+    flops, nbytes = _attention_cost(b, s, h, d, q.element_size(), hkv)
     nbytes += b * h * s * 4 if lse else 0
     bound_ms, bound_by = _bound(flops, nbytes, peak_flops)
-    row = dict(kernel=flash.kernel_for(dtype, d).name, shape=[b, s, h, d], dtype=str(dtype).split(".")[1],
+    row = dict(kernel=flash.kernel_for(dtype, d).name, shape=[b, s, h, d], kv_heads=hkv,
+               dtype=str(dtype).split(".")[1],
                causal=True, lse=lse, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
                tflops=flops / ms / 1e9, share_of_bound=bound_ms / ms, vs_library=ms / library_ms,
@@ -456,11 +494,14 @@ def _time_forward(b, s, h, d, dtype, lse, plain_iters, gen, peak_flops):
 
 def time_flash() -> list[dict]:
     """The sm90 kernel at the serving prefill (B = 1, no LSE) and training
-    (B = 4, LSE for the backward) shapes; the plain version is slow, so the
-    last takes 3 timings."""
+    (B = 4, LSE for the backward) shapes of olmo-1b, and at qwen3-moe's
+    2048-token prefill (64 q heads over 4 kv heads: GQA rep 16, the same
+    work as the training shape); the plain version is slow, so the large
+    shapes take 3 timings."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    return [_time_forward(b, s, 16, 128, torch.bfloat16, lse, iters, gen, PEAK_BF16_FLOPS)
-            for b, s, lse, iters in ((1, 512, False, 20), (1, 2048, False, 20), (4, 2048, True, 3))]
+    return [_time_forward(b, s, h, 128, torch.bfloat16, lse, iters, gen, PEAK_BF16_FLOPS, hkv)
+            for b, s, h, hkv, lse, iters in ((1, 512, 16, 16, False, 20), (1, 2048, 16, 16, False, 20),
+                                             (4, 2048, 16, 16, True, 3), (1, 2048, 64, 4, False, 3))]
 
 
 # The simt kernel's timed shapes, (B, S, LSE, plain version's timings): the
@@ -555,6 +596,10 @@ BWD_SWEEP = [
     (2, 17, 50, 4, 1, 16, True, 33, torch.bfloat16, "exact"),
     (1, 256, 256, 16, 16, 128, True, 0, torch.float32, "exact"),
     (2, 1024, 1024, 16, 16, 128, True, 0, torch.float32, "exact"),
+    # GQA rep 16 (qwen3-moe): dK/dV sum 16 q heads per kv head; the sm90
+    # pair in bf16 and the simt pair in fp32.
+    (1, 512, 512, 64, 4, 128, True, 0, torch.bfloat16, "exact"),
+    (1, 256, 256, 64, 4, 128, True, 0, torch.float32, "exact"),
 ]
 
 
@@ -679,7 +724,7 @@ def _time_bwd_shape(case, peak_flops, plain_iters, gen, full=True) -> dict:
     ms, by_kernel = cuda_ms(whole), profiled_by_kernel(whole)
 
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=hkv != h)
     dot = do.transpose(1, 2)
     sdpa = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
     library_ms, library_device_ms = cuda_ms(sdpa), profiled_ms(sdpa)
@@ -698,7 +743,7 @@ def _time_bwd_shape(case, peak_flops, plain_iters, gen, full=True) -> dict:
                           device_share_of_bound=bound_ms / device_ms)
     rows["whole"].update(ms=ms, vs_library=ms / library_ms,
                          device_vs_library=rows["whole"]["device_ms"] / library_device_ms)
-    timing = dict(kernel=pair.name, shape=[b, s, h, d], dtype=str(q.dtype).split(".")[1], causal=True,
+    timing = dict(kernel=pair.name, shape=[b, s, h, d], kv_heads=hkv, dtype=str(q.dtype).split(".")[1], causal=True,
                   library_ms=library_ms, library_device_ms=library_device_ms, **rows)
     if full:
         tile = bwd_tile(q.dtype, d)
@@ -761,7 +806,11 @@ def time_bwd() -> dict:
     shapes and tiles."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     training = next(c for c in BWD_SWEEP if c[0] == 4 and c[1] == 2048)
+    # qwen3-moe's rep 16 at the same work: 4 kv heads give dK/dV a quarter
+    # of the training shape's CTAs.
+    rep16 = (1, 2048, 2048, 64, 4, 128, True, 0, torch.bfloat16, "exact")
     return dict(sm90=_time_bwd_shape(training, PEAK_BF16_FLOPS, 3, gen),
+                sm90_rep16=_time_bwd_shape(rep16, PEAK_BF16_FLOPS, 3, gen),
                 simt=time_simt_bwd(), simt_tiles=time_simt_bwd_tiles())
 
 
@@ -874,7 +923,85 @@ def _expected_launches(engine: ServeEngine, prompts, cfg) -> int:
     return total
 
 
-def serve(cfg, params) -> dict:
+def _path_counts() -> dict:
+    """The MoE dispatches by mode, the share of (token, expert) copies
+    dropped by capacity, and the _int_mm calls since the last reset."""
+    copies = moe.counts["copies_capacity"] + moe.counts["copies_dropless"]
+    return dict(moe_calls={m: moe.counts[m] for m in ("capacity", "dropless")},
+                moe_dropped_share=moe.dropped_copies() / copies if copies else 0.0,
+                int_mm_calls=quantize.int_mm_calls)
+
+
+def reset_path_counts() -> None:
+    reset_fwd_counts()
+    moe.reset_counts()
+    quantize.reset_counts()
+
+
+def _prefill_vs_naive(cfg, params, prompt, phase) -> dict:
+    """One request's prefill logits (bucket 1024): kernel path vs
+    naive-attention path, relative to the largest naive logit.
+
+    For a MoE model the two paths' bf16 attention outputs differ by
+    rounding, which flips some tokens' top-k experts, and a flip moves the
+    capacity positions of every later copy of those experts: its logits
+    cannot be held to TOL_PREFILL_REL (0.161 on qwen3-moe at depth 4, argmax
+    agreement 0.92, in the first card run).  There the gate is the first
+    layer's attention output on the model's own input, kernel against
+    naive, with the tokens whose first-layer experts differ counted; the
+    whole model's numbers are reported beside it."""
+    bucket = 1024
+    toks = torch.zeros((1, bucket), dtype=torch.int32, device="cuda")
+    toks[0, :len(prompt)] = torch.as_tensor(prompt, device="cuda")
+    naive_cfg = dataclasses.replace(cfg, attention_impl="naive")
+    with torch.no_grad():
+        got, _ = prefill_step(params, cfg, toks, init_cache(cfg, 1, bucket, "cuda"), [len(prompt)])
+        ref, _ = prefill_step(params, naive_cfg, toks, init_cache(cfg, 1, bucket, "cuda"), [len(prompt)])
+    got, ref = got[0, :len(prompt)].float(), ref[0, :len(prompt)].float()
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    row = dict(arch=cfg.name, quant=_quant_flag(cfg), prompt_len=len(prompt), max_rel_err=rel,
+               tol=TOL_PREFILL_REL, argmax_agreement=agree)
+    gated = rel
+    if cfg.moe is not None:
+        row.update(_first_layer_vs_naive(cfg, params, toks[:, :len(prompt)]))
+        gated = row["layer0_attention_max_rel_err"]
+    emit(phase, prefill_logits_vs_naive=row)
+    if not (gated <= TOL_PREFILL_REL and torch.isfinite(got).all()):
+        raise AssertionError(f"{cfg.name} prefill differs from the naive path: {row}")
+    return row
+
+
+def _first_layer_vs_naive(cfg, params, toks) -> dict:
+    """The first layer's attention output, kernel path vs naive path, on the
+    prompt's embeddings (relative to the largest naive value), and the
+    tokens whose top-k experts of that layer differ between the paths."""
+    layer = _layer(params["layers"], 0)
+    x = params["embed"][toks]
+    pos = torch.arange(toks.shape[1], device="cuda", dtype=torch.int32)[None]
+    with torch.no_grad():
+        h = apply_norm(x, layer["attn_norm"], cfg.norm_type)
+        outs = [attention_forward(h, layer["attn"], c, pos)
+                for c in (cfg, dataclasses.replace(cfg, attention_impl="naive"))]
+        experts = []
+        for a in outs:
+            hn = apply_norm(x + a, layer["mlp_norm"], cfg.norm_type)
+            logits = hn.reshape(-1, cfg.d_model).float() @ layer["moe"]["router"]
+            experts.append(torch.topk(logits, cfg.moe.top_k, dim=-1).indices.sort(dim=-1).values)
+    got, ref = (a.float() for a in outs)
+    flips = int((experts[0] != experts[1]).any(dim=-1).sum())
+    return dict(layer0_attention_max_rel_err=float((got - ref).abs().max() / ref.abs().max()),
+                layer0_routing_flips=flips, tokens=toks.shape[1])
+
+
+def _layer(stacked, i):
+    """Layer ``i`` of a stacked params dict (``None`` leaves stay)."""
+    if isinstance(stacked, dict):
+        return {k: _layer(v, i) for k, v in stacked.items()}
+    return None if stacked is None else stacked[i]
+
+
+def serve(cfg, params, phase: str = "serve") -> dict:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SERVE_PROMPT_LENS]
     # Warm-up (not counted, not timed): CUDA context, cuBLAS handles, the
@@ -890,7 +1017,8 @@ def serve(cfg, params) -> dict:
         for i, p in enumerate(prompts):
             engine.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
         torch.cuda.synchronize()
-        reset_fwd_counts()
+        torch.cuda.reset_peak_memory_stats()
+        reset_path_counts()
         t0 = time.perf_counter()
         done = engine.run()
         torch.cuda.synchronize()
@@ -909,35 +1037,31 @@ def serve(cfg, params) -> dict:
         outputs[chunk] = {r.rid: r.output for r in done}
         ttft, tpot = request_latencies(done)
         toks = sum(len(r.output) for r in done)
-        run = dict(prefill_chunk=chunk, requests=len(done), tokens=toks, seconds=dt,
+        run = dict(arch=cfg.name, layers=cfg.num_layers, quant=_quant_flag(cfg), prefill_chunk=chunk,
+                   requests=len(done), tokens=toks, seconds=dt,
                    tokens_per_s=toks / dt, ttft_ms_p50=float(np.median(ttft)) * 1e3,
                    prefill_ms_p50=float(np.median(
                        [r.t_first_token - r.t_prefill for r in done])) * 1e3,
                    tpot_ms_p50=float(np.median(tpot)) * 1e3,
                    flash_launches=run_launches, flash_launches_by_kernel=by_kernel,
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   **(_path_counts() if cfg.moe is not None or cfg.quant is not None else {}),
                    stats=engine.stats)
-        emit("serve", **run)
+        if cfg.moe is not None and (run["moe_calls"]["capacity"] == 0 or run["moe_calls"]["dropless"] == 0):
+            raise AssertionError(f"MoE layers ran {run['moe_calls']}: expected capacity prefills and dropless decode")
+        if cfg.quant is not None and run["int_mm_calls"] == 0:
+            raise AssertionError(f"the {run['quant']} policy made no _int_mm call")
+        emit(phase, **run)
         runs.append(run)
     same = sum(outputs[None][i] == outputs[512][i] for i in outputs[None])
-    emit("serve", chunked_equals_unchunked=f"{same}/{len(prompts)} requests")
+    emit(phase, chunked_equals_unchunked=f"{same}/{len(prompts)} requests")
+    return dict(runs=runs, launches=launches,
+                prefill_vs_naive=_prefill_vs_naive(cfg, params, prompts[3], phase))
 
-    # One request's prefill logits: kernel path vs naive-attention path.
-    p = prompts[3]
-    bucket = 1024
-    toks = torch.zeros((1, bucket), dtype=torch.int32, device="cuda")
-    toks[0, :len(p)] = torch.as_tensor(p, device="cuda")
-    with torch.no_grad():
-        got, _ = prefill_step(params, cfg, toks, init_cache(cfg, 1, bucket, "cuda"), [len(p)])
-        naive_cfg = dataclasses.replace(cfg, attention_impl="naive")
-        ref, _ = prefill_step(params, naive_cfg, toks, init_cache(cfg, 1, bucket, "cuda"), [len(p)])
-    got, ref = got[0, :len(p)].float(), ref[0, :len(p)].float()
-    rel = float((got - ref).abs().max() / ref.abs().max())
-    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-    emit("serve", prefill_logits_vs_naive=dict(prompt_len=len(p), max_rel_err=rel,
-                                               tol=TOL_PREFILL_REL, argmax_agreement=agree))
-    if not (rel <= TOL_PREFILL_REL and torch.isfinite(got).all()):
-        raise AssertionError(f"prefill logits differ from the naive path: {rel}")
-    return dict(runs=runs, launches=launches)
+
+def _quant_flag(cfg) -> str:
+    return "none" if cfg.quant is None else next(
+        f for f in QUANT_FLAGS if parse_quant(f) == cfg.quant)
 
 
 # -- phase 7: greedy equivalence in fp32 ------------------------------------------
@@ -954,7 +1078,7 @@ def _reference_top2_gap(cfg, params, tokens) -> float:
     return float(top[0] - top[1])
 
 
-def greedy(cfg) -> dict:
+def greedy(cfg, phase: str = "greedy") -> dict:
     params = init_params(cfg, seed=1, device="cuda")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in GREEDY_PROMPT_LENS]
@@ -962,10 +1086,11 @@ def greedy(cfg) -> dict:
     for i, p in enumerate(prompts):
         engine.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
     torch.cuda.synchronize()
-    reset_fwd_counts()
+    reset_path_counts()
     done = {r.rid: r.output for r in engine.run()}
     torch.cuda.synchronize()
     by_kernel = dict(flash.launch_counts)
+    engine_counts = _path_counts()
     expected = _expected_launches(engine, prompts, cfg)
     if by_kernel != dict(sm90=0, simt=expected):
         raise AssertionError(f"fp32 prefills launched {by_kernel}, expected {expected} all simt")
@@ -976,13 +1101,19 @@ def greedy(cfg) -> dict:
             if done[i] == ref:
                 continue
             t = next(j for j, (a, b) in enumerate(zip(done[i], ref)) if a != b)
+            moe.reset_counts()
+            moe.track_margins = cfg.moe is not None
             gap = _reference_top2_gap(cfg, params, np.concatenate([p, ref[:t]]))
-            emit("greedy", rid=i, first_difference=t, reference_top2_gap=gap)
-            if gap > NEAR_TIE:
+            moe.track_margins = False
+            margin = moe.min_router_margin()
+            emit(phase, rid=i, first_difference=t, reference_top2_gap=gap,
+                 **({"reference_min_router_margin": margin} if cfg.moe is not None else {}))
+            if gap > NEAR_TIE and not margin <= ROUTER_NEAR_TIE:
                 raise AssertionError(f"request {i}: engine {done[i]} != sequential {ref}")
             near_ties += 1
-    emit("greedy", requests=len(prompts), tokens_each=MAX_NEW, near_ties=near_ties,
-         identical=len(prompts) - near_ties, flash_launches_by_kernel=by_kernel)
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, requests=len(prompts), tokens_each=MAX_NEW,
+         near_ties=near_ties, identical=len(prompts) - near_ties, flash_launches_by_kernel=by_kernel,
+         **(engine_counts if cfg.moe is not None else {}))
     return dict(near_ties=near_ties, launches=by_kernel["simt"])
 
 
@@ -1047,45 +1178,190 @@ GRADS_DEPTH, GRADS_BATCH, GRADS_SEQ = 2, 2, 1024
 TOL_GRADS = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
-def grads(cfg) -> dict:
+def grads(cfg, tols=TOL_GRADS, depth=GRADS_DEPTH, batch=GRADS_BATCH, seq=GRADS_SEQ,
+          phase: str = "grads") -> dict:
     """Largest relative gradient error by dtype, and the forward and
     backward launches of each kernel path (fp32: the simt forward and pair;
     bf16: the sm90 forward and pair; the forward once per layer, twice with
     remat, and one launch of each backward kernel per layer)."""
     worst, launches, fwd_launches = {}, {}, {}
-    for dtype, tol in TOL_GRADS.items():
-        small = dataclasses.replace(cfg, num_layers=GRADS_DEPTH, dtype=dtype)
+    for dtype, tol in tols.items():
+        small = dataclasses.replace(cfg, num_layers=depth, dtype=dtype)
         params = init_params(small, seed=2, device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(2)
-        toks = torch.randint(0, small.vocab_size, (GRADS_BATCH, GRADS_SEQ + 1), generator=gen, device="cuda")
-        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        toks = torch.randint(0, small.vocab_size, (batch, seq + 1), generator=gen, device="cuda")
+        batch_ = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
         torch.cuda.synchronize()
-        reset_fwd_counts()
+        torch.cuda.reset_peak_memory_stats()
+        reset_path_counts()
         reset_bwd_counts()
-        loss, got = value_and_grad(small, params, batch)
+        loss, got = value_and_grad(small, params, batch_)
         torch.cuda.synchronize()
         launches[dtype] = dict(flash_bwd.launch_counts)
         fwd_launches[dtype] = dict(flash.launch_counts)
         pair = flash_bwd.bwd_kernel_for(small.activation_dtype, small.resolved_head_dim)
-        expected = {e: GRADS_DEPTH * (e in pair.entries) for e in flash_bwd.launch_counts}
+        expected = {e: depth * (e in pair.entries) for e in flash_bwd.launch_counts}
         if launches[dtype] != expected:
             raise AssertionError(f"{dtype} gradients launched {launches[dtype]}, expected {expected}")
         fwd = flash.kernel_for(small.activation_dtype, small.resolved_head_dim).name
-        fwd_expected = {name: GRADS_DEPTH * (2 if small.remat else 1) * (name == fwd) for name in flash.launch_counts}
+        fwd_expected = {name: depth * (2 if small.remat else 1) * (name == fwd) for name in flash.launch_counts}
         if fwd_launches[dtype] != fwd_expected:
             raise AssertionError(f"{dtype} forward launched {fwd_launches[dtype]}, expected {fwd_expected}")
-        ref_loss, ref = value_and_grad(dataclasses.replace(small, attention_impl="naive"), params, batch)
+        extra = _path_counts() if small.moe is not None else {}
+        ref_loss, ref = value_and_grad(dataclasses.replace(small, attention_impl="naive"), params, batch_)
         rel = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
                   for a, b in zip(tree_leaves(got), tree_leaves(ref)))
-        emit("grads", dtype=dtype, depth=GRADS_DEPTH, batch=GRADS_BATCH, seq=GRADS_SEQ,
+        emit(phase, arch=small.name, dtype=dtype, depth=depth, batch=batch, seq=seq,
              loss=float(loss), naive_loss=float(ref_loss), max_rel_err=rel, tol=tol,
-             fwd_launches=fwd_launches[dtype], bwd_launches=launches[dtype])
+             fwd_launches=fwd_launches[dtype], bwd_launches=launches[dtype],
+             max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, **extra)
         if not rel <= tol or not math.isfinite(float(loss)):
             raise AssertionError(f"{dtype} gradients differ from the naive path: {rel} > {tol}")
         worst[dtype] = rel
         del params, got, ref
         torch.cuda.empty_cache()
     return dict(worst=worst, launches=launches, fwd_launches=fwd_launches)
+
+
+# -- phase 11: MoE and int8 ----------------------------------------------------------
+
+# qwen3-moe-235b-a22b at full width (d_model 4096, 64 heads of 128 over 4 kv
+# heads: GQA rep 16; 128 experts of 1536, top 8; vocab 151936), its depth
+# cut from 94 to fit the card: 4 layers in bf16 to serve (about 22.4 GB of
+# weights), 2 in fp32 for the greedy check (about 24.9 GB), 1 in fp32 for
+# the gradient check (about 30 GB with the gradients).  arctic-480b at full
+# width, depth 1 of 35, bf16 (one layer's experts are 26.8 GB).
+MOE_ARCH, ARCTIC_ARCH = "qwen3-moe-235b-a22b", "arctic-480b"
+MOE_SERVE_DEPTH, MOE_GREEDY_DEPTH, ARCTIC_DEPTH = 4, 2, 1
+MOE_GRADS = dict(depth=1, batch=1, seq=512)
+ARCTIC_DECODE_STEPS = 4
+# int8 products held against the CPU's exact version: experts of the
+# batched prefill product compared (the CPU's int32 product is slow; each
+# expert's result depends on its own rows and weights only).
+INT8_EXPERTS_CHECKED = 8
+
+
+def check_int8_products(cfg) -> list[dict]:
+    """int8_dot and int8_dot_batched on the card at the MoE serve path's
+    shapes against the CPU version on the same inputs: the int32
+    accumulators and the outputs bit for bit, per channel and per tensor."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    d, f, e, hd = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.num_experts, cfg.resolved_head_dim
+    prefill_t = 2048
+    capacity = int(prefill_t * cfg.moe.top_k * cfg.moe.capacity_factor / e)
+    # (name, x shape, w shape, experts compared): a 2048-token prefill's k
+    # projection, a B = 4 decode step's q projection (padded to 17 rows),
+    # the expert products of that prefill (capacity rows an expert) and of
+    # the decode step (dropless: 4 rows an expert, padded).
+    cases = [("int8_dot", (prefill_t, d), (d, cfg.num_kv_heads * hd), None),
+             ("int8_dot", (4, d), (d, cfg.num_heads * hd), None),
+             ("int8_dot_batched", (e, capacity, d), (e, d, f), INT8_EXPERTS_CHECKED),
+             ("int8_dot_batched", (e, 4, d), (e, d, f), e)]
+    rows = []
+    for name, xs, ws, n in cases:
+        x = _randn(xs, gen, torch.bfloat16)
+        w = (_randn(ws, gen, torch.float32) / math.sqrt(ws[-2])).to(torch.bfloat16)
+        experts = name == "int8_dot_batched"
+        fn = int8_dot_batched if experts else int8_dot
+        for per_channel in (True, False):
+            before = quantize.int_mm_calls
+            acc, _, _ = quantize.int8_accumulate(x, w, per_channel, experts)
+            out = fn(x, w, per_channel=per_channel)
+            torch.cuda.synchronize()
+            calls = quantize.int_mm_calls - before
+            xc, wc = (x[:n], w[:n]) if experts else (x, w)
+            acc_cpu, _, _ = quantize.int8_accumulate(xc.cpu(), wc.cpu(), per_channel, experts)
+            out_cpu = fn(xc.cpu(), wc.cpu(), per_channel=per_channel)
+            acc_equal = torch.equal(acc[:n].cpu() if experts else acc.cpu(), acc_cpu)
+            out_equal = torch.equal(out[:n].cpu() if experts else out.cpu(), out_cpu)
+            row = dict(product=name, x=list(xs), w=list(ws), per_channel=per_channel,
+                       experts_compared=n, int_mm_calls=calls, acc_bit_equal=acc_equal,
+                       out_bit_equal=out_equal, acc_max_abs=int(acc.abs().max()))
+            emit("moe", int8_check=row)
+            rows.append(row)
+            if not (acc_equal and out_equal):
+                raise AssertionError(f"int8 product on the card differs from the CPU's: {row}")
+            if calls != 2 * (xs[0] if experts else 1):  # acc and out: one call an expert each
+                raise AssertionError(f"{name} made {calls} _int_mm calls: {row}")
+    return rows
+
+
+def moe_bit_equal(cfg, params) -> dict:
+    """Two moe_forward calls on one bf16 input give the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    layer = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    x = _randn((1, 2048, cfg.d_model), gen, torch.bfloat16)
+    with torch.no_grad():
+        first, second = moe.moe_forward(x, layer, cfg), moe.moe_forward(x, layer, cfg)
+    row = dict(shape=list(x.shape), bit_equal=bool(torch.equal(first, second)),
+               finite=bool(torch.isfinite(first).all()))
+    emit("moe", moe_forward_twice=row)
+    if not (row["bit_equal"] and row["finite"]):
+        raise AssertionError(f"moe_forward is not repeatable: {row}")
+    return row
+
+
+def arctic(cfg) -> dict:
+    """arctic-480b at full width: one prefill's logits against the naive
+    path (the dense residual beside the experts), then decode steps."""
+    params = init_params(cfg, seed=3, device="cuda")
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, cfg.vocab_size, 700).astype(np.int32)
+    torch.cuda.synchronize()
+    reset_path_counts()
+    naive = _prefill_vs_naive(cfg, params, prompt, "moe")
+    launches = dict(flash.launch_counts)
+    # The kernel path's prefill, one launch a layer, and the first layer's
+    # attention alone.
+    if launches != dict(sm90=cfg.num_layers + 1, simt=0):
+        raise AssertionError(f"arctic prefill launched {launches}, expected {cfg.num_layers + 1} sm90")
+    cache = init_cache(cfg, 1, 1024, "cuda")
+    toks = torch.as_tensor(prompt[None], device="cuda")
+    with torch.no_grad():
+        logits, cache = prefill_step(params, cfg, toks, cache, [len(prompt)])
+        finite = [bool(torch.isfinite(logits).all())]
+        tok = logits[:, -1:].argmax(-1)
+        for i in range(ARCTIC_DECODE_STEPS):
+            logits, cache = decode_step(params, cfg, tok, cache, len(prompt) + i)
+            finite.append(bool(torch.isfinite(logits).all()))
+            tok = logits[:, -1:].argmax(-1)
+    torch.cuda.synchronize()
+    row = dict(arch=cfg.name, layers=cfg.num_layers, decode_steps=ARCTIC_DECODE_STEPS, finite=finite,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, **_path_counts())
+    emit("moe", arctic=row)
+    if not all(finite):
+        raise AssertionError(f"arctic logits not finite: {row}")
+    del params, cache
+    return dict(prefill_vs_naive=naive, launches=launches["sm90"], **row)
+
+
+def moe_phase() -> dict:
+    """The MoE and int8 slice on the card (see the module docstring)."""
+    full = get_config(MOE_ARCH)
+    int8_rows = check_int8_products(full)
+    cfg = dataclasses.replace(full, num_layers=MOE_SERVE_DEPTH)
+    params = init_params(cfg, seed=0, device="cuda")
+    bit_equal = moe_bit_equal(cfg, params)
+    served = {}
+    for flag in ("none", "int8"):  # both policies serve the same weights
+        qcfg = dataclasses.replace(get_config(MOE_ARCH, flag), num_layers=MOE_SERVE_DEPTH)
+        served[flag] = serve(qcfg, params, "moe")
+    del params
+    torch.cuda.empty_cache()
+    # fp32 greedy at capacity_factor E / k: prefill drops nothing, so the
+    # engine must give sequential (dropless) decode's tokens.
+    greedy_cfg = dataclasses.replace(
+        full, num_layers=MOE_GREEDY_DEPTH, dtype="float32",
+        moe=dataclasses.replace(full.moe, capacity_factor=full.moe.num_experts / full.moe.top_k))
+    greedied = greedy(greedy_cfg, "moe")
+    torch.cuda.empty_cache()
+    graded = grads(full, {"float32": TOL_GRADS["float32"]}, phase="moe", **MOE_GRADS)
+    torch.cuda.empty_cache()
+    arctic_cfg = dataclasses.replace(get_config(ARCTIC_ARCH), num_layers=ARCTIC_DEPTH)
+    arcticked = arctic(arctic_cfg)
+    torch.cuda.empty_cache()
+    return dict(int8=int8_rows, bit_equal=bit_equal, served=served, greedy=greedied, grads=graded,
+                arctic=arcticked)
 
 
 # -- phase 10: the autotuner ------------------------------------------------------------
@@ -1277,13 +1553,18 @@ def main() -> None:
     torch.cuda.empty_cache()
     graded = grads(cfg)
     torch.cuda.empty_cache()
+    moed = moe_phase()
     tuned = tune()
 
     serve_shape = next(r for r in timing if r["shape"] == [1, 2048, 16, 128])
     fwd_launches = dict(serve=served["launches"], train=trained["launches"]["flash_fwd"],
-                        grads_bfloat16=graded["fwd_launches"]["bfloat16"]["sm90"])
+                        grads_bfloat16=graded["fwd_launches"]["bfloat16"]["sm90"],
+                        **{f"moe_serve_{flag}": run["launches"] for flag, run in moed["served"].items()},
+                        arctic_prefill=moed["arctic"]["launches"])
     greedy_shape = next(r for r in simt_timing if r["shape"] == [1, 256, 16, 128])
-    simt_launches = dict(greedy=greedied["launches"], grads_float32=graded["fwd_launches"]["float32"]["simt"])
+    simt_launches = dict(greedy=greedied["launches"], grads_float32=graded["fwd_launches"]["float32"]["simt"],
+                         moe_greedy=moed["greedy"]["launches"],
+                         moe_grads_float32=moed["grads"]["fwd_launches"]["float32"]["simt"])
     # The forward's two kernels, both ports of _fwd_kernel: the sm90 one on
     # the bf16 main path (serve, train), the simt one on the fp32 greedy path.
     records = [dict(
@@ -1322,11 +1603,13 @@ def main() -> None:
         ("", flash_bwd.SM90, "sm90: wgmma + TMA, producer/consumer warpgroups (bf16, d 64 and 128)",
          "flash_bwd_sm90.cu", dict(train=trained["launches"], grads_bfloat16=graded["launches"]["bfloat16"]),
          {"bfloat16": TOL_BWD[torch.bfloat16], "bfloat16_flips": TOL_BWD_FLIPS,
-          "bfloat16_vs_fp32_p": TOL_BWD_FP32P}, bwd_timing["sm90"], sm90_bwd, {}),
+          "bfloat16_vs_fp32_p": TOL_BWD_FP32P}, bwd_timing["sm90"], sm90_bwd,
+         dict(rep16=bwd_timing["sm90_rep16"])),
         ("_simt", flash_bwd.SIMT,
          "simt: register-blocked fp32 FMAs on the CUDA cores, staggered cp.async loads, two CTAs an SM, "
          "resident tile 32 or 16 (fp32; bf16 at d 16 and 32)",
-         "flash_bwd.cu", dict(grads_float32=graded["launches"]["float32"]),
+         "flash_bwd.cu", dict(grads_float32=graded["launches"]["float32"],
+                              moe_grads_float32=moed["grads"]["launches"]["float32"]),
          {"float32": TOL_BWD[torch.float32], "bfloat16": TOL_BWD[torch.bfloat16]}, simt_grads, simt_bwd,
          dict(by_shape=bwd_timing["simt"], by_tile=bwd_timing["simt_tiles"])),
     )
@@ -1340,7 +1623,7 @@ def main() -> None:
                 name=f"flash_bwd_{key}{suffix}", variant=variant, route="cuda",
                 source=f"src/repro_torch/kernels/csrc/{source}",
                 replaces=f"src/repro/kernels/flash_attention/kernel_bwd.py:{line}",
-                launches=next(iter(launches_by_path.values())), launches_by_path=launches_by_path,
+                launches=sum(launches_by_path.values()), launches_by_path=launches_by_path,
                 max_abs_err=bwd_err[pair.name, key], **extra, tol=tol,
                 ms=row["ms"], device_ms=row["device_ms"], alone_device_ms=row["alone_device_ms"],
                 plain_ms=timing["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],

@@ -1,9 +1,13 @@
 """Where the serving path's time goes on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch qwen3-moe-235b-a22b --layers 4 --quant int8
 
-Runs full-width olmo-1b in bf16 with seeded random weights at the shapes of
-``chip_smoke.py``'s serve phase and, for each of the two serving phases,
+Runs a full-width model (default olmo-1b; ``--layers`` cuts its depth,
+``--quant`` sets an int8 policy) in bf16 with seeded random weights at the
+shapes of ``chip_smoke.py``'s serve phase and, for each of the two serving
+phases,
 takes the host wall time of the phase (median of ``REPEATS`` runs, each
 ended by a synchronize) and one ``torch.profiler`` trace of it:
 
@@ -13,13 +17,18 @@ ended by a synchronize) and one ``torch.profiler`` trace of it:
     depth ``DEPTH`` in a ``MAX_LEN`` cache (what TPOT pays).
 
 Each phase prints one JSON line: wall ms, device (kernel) ms from the
-trace, the device's busy share of the wall time, and the kernels that
-take the most device time.  Needs the card.  ``launch/profile_train.py``
+trace, the device's busy share of the wall time, the kernels that take the
+most device time, and the device ms inside each profiler range of the MoE
+layer (dispatch, expert products, combine) and of the int8 products
+(quantization, ``_int_mm``), with the MoE dispatches and ``_int_mm`` calls
+per call.  Needs the card.  ``launch/profile_train.py``
 reports a training step with the same helpers.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import time
 
@@ -29,8 +38,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.registry import get_config
 from repro_torch.models import decode_step, init_cache, init_params, prefill_step
+from repro_torch.models import moe
+from repro_torch.quant import QUANT_FLAGS
+from repro_torch.quant import quantize
 
-ARCH = "olmo-1b"
 BUCKET, PROMPT_LEN = 2048, 1536  # the serve phase's longest prompt, its bucket
 BATCH, MAX_LEN, DEPTH = 4, 2048, 1024  # its engine's slots and cache, half full
 STEPS = 10  # decode steps per timed call
@@ -39,6 +50,7 @@ TOP = 12  # kernels listed per phase
 # The forward kernels, by a substring of their names (kernel.KERNELS picks
 # one): the tensor-core kernel for bf16 at d 64 and 128, the SIMT one else.
 FORWARD_GROUPS = {"flash_fwd_sm90": "flash_fwd_sm90_kernel", "flash_fwd_simt": "flash_fwd_kernel"}
+RANGES = moe.RANGES + quantize.RANGES
 
 
 def _wall_ms(fn) -> float:
@@ -53,23 +65,31 @@ def _wall_ms(fn) -> float:
     return float(np.median(times))
 
 
-def _kernels(fn) -> tuple[float, list[dict]]:
+def _kernels(fn) -> tuple[float, list[dict], dict]:
     """Device ms of one traced call of ``fn`` and all its kernels, the one
-    that takes the most device time first."""
+    that takes the most device time first, and the device ms of the kernels
+    launched inside each of ``RANGES``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # A range also shows on the device's timeline (its span, gaps and
+    # all); only kernels count here.
     rows = [
         (e.key, e.self_device_time_total / 1e3, e.count)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        and e.key not in RANGES
     ]
+    ranges = {name: 0.0 for name in RANGES}
+    for e in prof.events():
+        if e.name in ranges and e.device_type == torch.autograd.DeviceType.CPU:
+            ranges[e.name] += e.device_time_total / 1e3
     total = sum(ms for _, ms, _ in rows)
     rows.sort(key=lambda r: -r[1])
     return total, [
         {"kernel": name, "ms": ms, "share": ms / total if total else 0.0, "calls": n}
         for name, ms, n in rows
-    ]
+    ], ranges
 
 
 def report(phase: str, fn, calls: int, groups=None, **extra) -> None:
@@ -77,8 +97,11 @@ def report(phase: str, fn, calls: int, groups=None, **extra) -> None:
     times are per call.  ``groups`` maps a label to a substring of kernel
     names; the line gives each group's share of the device time."""
     wall = _wall_ms(fn) / calls
-    device_ms, rows = _kernels(fn)
+    moe.reset_counts()
+    quantize.reset_counts()
+    device_ms, rows, ranges = _kernels(fn)
     device_ms /= calls
+    moe_calls = {mode: moe.counts[mode] / calls for mode in ("capacity", "dropless")}
     shares = {
         label: sum(r["share"] for r in rows if part in r["kernel"])
         for label, part in (groups or {}).items()
@@ -90,20 +113,30 @@ def report(phase: str, fn, calls: int, groups=None, **extra) -> None:
     print(json.dumps({
         "phase": phase, **extra, "wall_ms_per_call": wall,
         "device_ms_per_call": device_ms, "device_busy_share": device_ms / wall,
-        **({"group_shares": shares} if groups else {}), "top_kernels": top_rows,
+        **({"group_shares": shares} if groups else {}),
+        "range_device_ms_per_call": {name: ms / calls for name, ms in ranges.items()},
+        "moe_calls_per_call": moe_calls, "int_mm_calls_per_call": quantize.int_mm_calls / calls,
+        "top_kernels": top_rows,
     }), flush=True)
 
 
 @torch.no_grad()
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth (default: the config's)")
+    ap.add_argument("--quant", default="none", choices=QUANT_FLAGS)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the card; no CUDA device found")
 
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch, args.quant)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     params = init_params(cfg, 0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "arch": cfg.name,
-                      "dtype": cfg.dtype}), flush=True)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "arch": cfg.name, "layers": cfg.num_layers,
+                      "quant": args.quant, "dtype": cfg.dtype}), flush=True)
 
     tokens = torch.randint(0, cfg.vocab_size, (1, BUCKET), generator=gen, device="cuda")
 

@@ -11,6 +11,9 @@ weights are random, from ``--seed``.
 
   --temperature/--top-k/--top-p  sampling policy (default greedy)
   --chunk N                      chunked flash prefill (N tokens per call)
+  --quant int8                   int8 projections + int8 KV cache
+                                 (repro_torch.quant; greedy outputs stay
+                                 token-equal to sequential decode)
   --check                        verify every greedy output token-for-token
                                  against sequential single-request decode
   --device                       cuda (default) or cpu
@@ -25,6 +28,7 @@ import numpy as np
 
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.models import init_params
+from repro_torch.quant.config import QUANT_FLAGS
 from repro_torch.serve import (
     Request,
     SamplingConfig,
@@ -44,6 +48,8 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--chunk", type=int, default=None)
+    ap.add_argument("--quant", default="none", choices=QUANT_FLAGS,
+                    help="int8 quantization policy (repro_torch.quant)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -53,7 +59,7 @@ def main() -> None:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args()
 
-    cfg = get_smoke_config(args.arch)
+    cfg = get_smoke_config(args.arch, args.quant)
     if cfg.family == "encoder":
         raise SystemExit("encoder-only arch: no decode phase")
 

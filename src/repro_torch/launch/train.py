@@ -6,16 +6,18 @@
       --batch 4 --seq 2048
 
 ``--smoke`` uses the arch's reduced config; without it the full config
-trains (on the card: full-width olmo-1b takes about 20 GB at batch 4 x
-2048).  The weights are random, from the trainer's seed; the data is the
+trains (on the card: full-width olmo-1b peaked at 41.48 GB at batch 4 x
+2048, remat, AdamW).  The weights are random, from the trainer's seed; the data is the
 seeded synthetic stream unless ``--token-file`` names a corpus.  A run
 resumes from the latest checkpoint in ``--ckpt-dir``.
 
-  --device   cuda (default) or cpu
+  --device           cuda (default) or cpu
+  --quant int8       int8 projections (quantization-aware: the backward is
+                     straight-through); the flags of repro_torch.quant
+  --compress-grads   int8 gradients with error feedback
 
-Refused until ported: ``--quant`` and ``--compress-grads`` (int8, ROADMAP
-queue 1 item 4), ``--mesh`` (item 8), ``--metrics-out`` and ``--trace-out``
-(item 7).
+Refused until ported: ``--mesh`` (ROADMAP queue 1 item 8), ``--metrics-out``
+and ``--trace-out`` (item 7).
 """
 
 from __future__ import annotations
@@ -24,11 +26,10 @@ import argparse
 
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.quant.config import QUANT_FLAGS
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 _UNPORTED = {
-    "quant": "int8 (ROADMAP queue 1 item 4)",
-    "compress_grads": "int8 gradient compression (ROADMAP queue 1 item 4)",
     "mesh": "distribution (ROADMAP queue 1 item 8)",
     "metrics_out": "telemetry (ROADMAP queue 1 item 7)",
     "trace_out": "telemetry (ROADMAP queue 1 item 7)",
@@ -49,15 +50,17 @@ def main() -> None:
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--token-file", default=None)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    for flag in ("--quant", "--mesh", "--metrics-out", "--trace-out"):
+    ap.add_argument("--quant", default="none", choices=QUANT_FLAGS)
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8-compressed gradients with error feedback")
+    for flag in ("--mesh", "--metrics-out", "--trace-out"):
         ap.add_argument(flag, default=None, help="not ported yet")
-    ap.add_argument("--compress-grads", action="store_true", help="not ported yet")
     args = ap.parse_args()
     for name, item in _UNPORTED.items():
-        if getattr(args, name) not in (None, False, "none"):
+        if getattr(args, name) is not None:
             raise SystemExit(f"--{name.replace('_', '-')} is not ported yet: {item}")
 
-    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch, args.quant)
     if cfg.family == "encoder" and not cfg.embedding_inputs:
         raise SystemExit("encoder archs train on frame embeddings")
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
@@ -68,6 +71,7 @@ def main() -> None:
         optimizer=args.optimizer,
         peak_lr=args.lr,
         num_microbatches=args.microbatches,
+        compress_grads=args.compress_grads,
         log_every=max(args.steps // 10, 1),
     )
     trainer = Trainer(cfg, shape, tcfg, token_file=args.token_file, device=args.device)

@@ -16,7 +16,11 @@ cache, as in the reference.
 
 The KV cache is updated in place: ``prefill_attention`` writes the chunk's
 rows and ``decode_attention`` scatters one row per slot into the tensors of
-the cache it is given (the reference returns updated copies).
+the cache it is given (the reference returns updated copies).  Under a quant
+policy with ``kv_cache`` the cache is a ``QuantKVCache``: K and V are
+quantized on write (one scale per token and kv head), prefill attends over
+the dequantized span in x's dtype and decode over the dequantized cache in
+fp32, as in the reference.
 """
 
 from __future__ import annotations
@@ -29,13 +33,24 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import naive_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.quant import get_quant
+from repro_torch.quant import dequantize_kv, get_quant, quantize_kv
 from .layers import apply_mrope, apply_rope, dense_init, rms_norm
 
 
 class KVCache(NamedTuple):
     k: torch.Tensor  # [B, max_len, Hkv, d]
     v: torch.Tensor  # [B, max_len, Hkv, d]
+    lengths: torch.Tensor  # [B] int32: tokens cached per batch slot
+
+
+class QuantKVCache(NamedTuple):
+    """int8 KV storage: payloads + per-token/head fp32 scales.  As in the
+    reference, ``lengths`` is last and batch is dim 0 of every leaf."""
+
+    k: torch.Tensor  # int8 [B, max_len, Hkv, d]
+    v: torch.Tensor  # int8 [B, max_len, Hkv, d]
+    k_scale: torch.Tensor  # fp32 [B, max_len, Hkv]
+    v_scale: torch.Tensor  # fp32 [B, max_len, Hkv]
     lengths: torch.Tensor  # [B] int32: tokens cached per batch slot
 
 
@@ -132,22 +147,38 @@ def prefill_attention(
     if start < 0 or start + c > capacity:
         raise ValueError(f"chunk [{start}, {start + c}) exceeds cache capacity {capacity}")
     q, k_new, v_new = _project_qkv(x, params, cfg, positions)
-    cache.k[:, start:start + c] = k_new
-    cache.v[:, start:start + c] = v_new
-    o = _impl_attention(
-        q, cache.k[:, :start + c], cache.v[:, :start + c], cfg, q_offset=start
-    )
+    span = slice(start, start + c)
+    if isinstance(cache, QuantKVCache):
+        # Quantize on insert: each token/head vector gets its own scale, so
+        # the chunk write equals what decode's row writes would store.
+        cache.k[:, span], cache.k_scale[:, span] = quantize_kv(k_new)
+        cache.v[:, span], cache.v_scale[:, span] = quantize_kv(v_new)
+        k = dequantize_kv(cache.k[:, :start + c], cache.k_scale[:, :start + c], x.dtype)
+        v = dequantize_kv(cache.v[:, :start + c], cache.v_scale[:, :start + c], x.dtype)
+    else:
+        cache.k[:, span] = k_new
+        cache.v[:, span] = v_new
+        k, v = cache.k[:, :start + c], cache.v[:, :start + c]
+    o = _impl_attention(q, k, v, cfg, q_offset=start)
     o = o.reshape(b, c, cfg.num_heads * cfg.resolved_head_dim)
     return get_quant(cfg).dot(o, params["wo"], "attention"), cache
 
 
-def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> KVCache:
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
     shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-    get_quant(cfg)  # raises for an int8 policy (its cache is not ported)
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if get_quant(cfg).quantized_kv:
+        return QuantKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            lengths=lengths,
+        )
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
-        lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+        lengths=lengths,
     )
 
 
@@ -172,17 +203,28 @@ def decode_attention(
     # Masked scatter without a host sync: full slots rewrite the row they
     # already hold at max_len - 1.
     slot = torch.arange(b, device=x.device)
-    full = (cache.lengths >= max_len)[:, None, None]
+    full = cache.lengths >= max_len
     row = cache.lengths.clamp(max=max_len - 1).long()
-    cache.k[slot, row] = torch.where(full, cache.k[slot, row], k_new[:, 0].to(cache.k.dtype))
-    cache.v[slot, row] = torch.where(full, cache.v[slot, row], v_new[:, 0].to(cache.v.dtype))
+    if isinstance(cache, QuantKVCache):
+        (kq, ks), (vq, vs) = quantize_kv(k_new[:, 0]), quantize_kv(v_new[:, 0])
+        new_rows = dict(k=kq, v=vq, k_scale=ks, v_scale=vs)
+    else:
+        new_rows = dict(k=k_new[:, 0], v=v_new[:, 0])
+    for name, new in new_rows.items():
+        leaf = getattr(cache, name)
+        keep = full.reshape(b, *[1] * (new.dim() - 1))
+        leaf[slot, row] = torch.where(keep, leaf[slot, row], new.to(leaf.dtype))
+    if isinstance(cache, QuantKVCache):
+        k, v = dequantize_kv(cache.k, cache.k_scale), dequantize_kv(cache.v, cache.v_scale)
+    else:
+        k, v = cache.k.float(), cache.v.float()
 
     # GQA via a grouped product over [B, 1, Hkv, rep, d]: K/V are never
     # repeated rep times.
     rep = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(b, 1, cfg.num_kv_heads, rep, hd).float()
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))  # fp32, as the reference
-    s = torch.einsum("bqhrd,bkhd->bhrqk", qg, cache.k.float()) * scale
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k) * scale
     # Mask positions beyond each slot's (updated) cache length.
     valid = (
         torch.arange(max_len, device=x.device)[None, None, None, None, :]
@@ -190,7 +232,7 @@ def decode_attention(
     )
     s = torch.where(valid, s, -1e30)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhrqk,bkhd->bqhrd", p, cache.v.float()).to(x.dtype)
+    o = torch.einsum("bhrqk,bkhd->bqhrd", p, v).to(x.dtype)
     o = o.reshape(b, 1, cfg.num_heads * hd)
     new_cache = cache._replace(lengths=cache.lengths + 1)
     return get_quant(cfg).dot(o, params["wo"], "attention"), new_cache

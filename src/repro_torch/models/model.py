@@ -1,13 +1,15 @@
 """Model assembly: init / forward / loss / prefill / decode (counterpart of
-``repro.models.model``), for the dense and vlm families, and the encoder
-family in ``forward`` and ``lm_loss`` (it has no cache).
+``repro.models.model``), for the dense, moe and vlm families, and the
+encoder family in ``forward`` and ``lm_loss`` (it has no cache).
 
 Params are plain nested dicts with the reference's keys; layer params are
 stacked along a leading ``[L, ...]`` axis, and the layer ``scan`` becomes a
 Python loop over layer slices (with ``cfg.remat``, each layer is a
 ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).  The
 caches are stacked the same way (``KVCache`` leaves ``[L, B, ...]``,
-``lengths [L, B]``) and updated in place by prefill and decode.
+``lengths [L, B]``; ``QuantKVCache`` leaves under an int8 KV policy) and
+updated in place by prefill and decode.  MoE layers route with capacity in
+``forward``, ``lm_loss`` and prefill, and dropless in ``decode_step``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.quant import get_quant
 from .attention import (
     KVCache,
+    QuantKVCache,
     attention_forward,
     attention_params,
     decode_attention,
@@ -28,11 +31,11 @@ from .attention import (
     prefill_attention,
 )
 from .layers import apply_norm, embed_init, mlp_forward, mlp_params, norm_params
+from .moe import moe_forward, moe_params
 
-_FAMILIES = ("dense", "vlm")  # every path, caches included
+_FAMILIES = ("dense", "moe", "vlm")  # every path, caches included
 _FORWARD_FAMILIES = _FAMILIES + ("encoder",)  # init, forward, lm_loss
 _LATER = {
-    "moe": "ROADMAP queue 1, MoE",
     "hybrid": "ROADMAP queue 1, recurrent families",
     "ssm": "ROADMAP queue 1, recurrent families",
 }
@@ -66,8 +69,9 @@ def _stack(layers: list) -> Any:
     return None if first is None else torch.stack(layers)
 
 
-def _kv(cache: KVCache, i: int) -> KVCache:
-    return KVCache(k=cache.k[i], v=cache.v[i], lengths=cache.lengths[i])
+def _kv(cache, i: int):
+    """Layer ``i``'s cache (views) of a stacked ``KVCache`` or ``QuantKVCache``."""
+    return type(cache)(*(leaf[i] for leaf in cache))
 
 
 # ---------------------------------------------------------------------------
@@ -77,12 +81,18 @@ def _kv(cache: KVCache, i: int) -> KVCache:
 
 def _transformer_layer_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     dev = gen.device
-    return {
+    p = {
         "attn_norm": norm_params(cfg.d_model, cfg.norm_type, dtype, dev),
         "attn": attention_params(gen, cfg, dtype),
         "mlp_norm": norm_params(cfg.d_model, cfg.norm_type, dtype, dev),
-        "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe_params(gen, cfg, dtype)
+        if cfg.moe.dense_residual:
+            p["dense_mlp"] = mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)
+    else:
+        p["mlp"] = mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
@@ -126,9 +136,17 @@ def _logits(x, params: dict, cfg: ModelConfig, softcap: bool = True) -> torch.Te
     return logits
 
 
-def _mlp(h, layer, cfg: ModelConfig):
+def _mlp(h, layer, cfg: ModelConfig, dropless: bool = False):
+    """The residual MLP (MoE, with arctic's dense FFN beside it) of a block;
+    ``dropless`` routes MoE layers without capacity (decode)."""
     hn = apply_norm(h, layer["mlp_norm"], cfg.norm_type)
-    return h + mlp_forward(hn, layer["mlp"], cfg.mlp_type, get_quant(cfg))
+    quant = get_quant(cfg)
+    if cfg.moe is None:
+        return h + mlp_forward(hn, layer["mlp"], cfg.mlp_type, quant)
+    y = moe_forward(hn, layer["moe"], cfg, dropless=dropless)
+    if cfg.moe.dense_residual:
+        y = y + mlp_forward(hn, layer["dense_mlp"], cfg.mlp_type, quant)
+    return h + y
 
 
 def _transformer_block(x, layer, cfg: ModelConfig, positions, kv=None, start=0):
@@ -188,16 +206,12 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> KVCache:
-    """Stacked per-layer KV cache: leaves [L, B, max_len, Hkv, d], lengths [L, B]."""
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """Stacked per-layer cache (``KVCache``, or ``QuantKVCache`` under an
+    int8 KV policy): leaves [L, B, max_len, ...], lengths [L, B]."""
     _check_family(cfg)
     one = init_kv_cache(cfg, batch, max_len, cfg.activation_dtype, device)
-    L = cfg.num_layers
-    return KVCache(
-        k=one.k.new_zeros((L, *one.k.shape)),
-        v=one.v.new_zeros((L, *one.v.shape)),
-        lengths=one.lengths.new_zeros((L, batch)),
-    )
+    return type(one)(*(leaf.new_zeros((cfg.num_layers, *leaf.shape)) for leaf in one))
 
 
 def decode_step(
@@ -221,7 +235,9 @@ def decode_step(
     for i, layer in enumerate(_unstack(params["layers"], cfg.num_layers)):
         hn = apply_norm(x, layer["attn_norm"], cfg.norm_type)
         a, kv = decode_attention(hn, layer["attn"], cfg, _kv(cache, i), pos)
-        x = _mlp(x + a, layer, cfg)
+        # Dropless: a decode token's routing must not depend on its
+        # lane-mates (the reference's decode_step).
+        x = _mlp(x + a, layer, cfg, dropless=True)
         lengths.append(kv.lengths)
     # No logit softcap, as in the reference's decode_step.
     return _logits(x, params, cfg, softcap=False), cache._replace(lengths=torch.stack(lengths))
@@ -269,19 +285,21 @@ def prefill_step(
     return out, cache._replace(lengths=lengths[None, :].expand(cfg.num_layers, b).clone())
 
 
-def insert_cache(cache: KVCache, prefix: KVCache, slot: int) -> KVCache:
+def insert_cache(cache, prefix, slot: int):
     """Copy a prefilled cache (batch 1, seq capacity <= max_len) into batch
     slot ``slot`` of a decode cache, in place.  Every leaf is [L, B, ...]."""
     batch, max_len = cache.k.shape[1], cache.k.shape[2]
     seq = prefix.k.shape[2]
     # The reference's dynamic_update_slice would clamp an out-of-range slot
     # or an over-long prefix; no caller asks for that, so refuse it.
-    if not 0 <= slot < batch or prefix.k.shape[1] != 1 or seq > max_len:
+    if not 0 <= slot < batch or prefix.k.shape[1] != 1 or seq > max_len or type(prefix) is not type(cache):
         raise ValueError(
-            f"cannot insert a [B=1? {prefix.k.shape[1]}, S={seq}] prefix into slot "
-            f"{slot} of a [B={batch}, S={max_len}] cache"
+            f"cannot insert a {type(prefix).__name__} [B=1? {prefix.k.shape[1]}, S={seq}] prefix "
+            f"into slot {slot} of a {type(cache).__name__} [B={batch}, S={max_len}]"
         )
-    cache.k[:, slot:slot + 1, :seq] = prefix.k
-    cache.v[:, slot:slot + 1, :seq] = prefix.v
-    cache.lengths[:, slot:slot + 1] = prefix.lengths
+    for name in cache._fields:
+        if name == "lengths":
+            cache.lengths[:, slot:slot + 1] = prefix.lengths
+        else:
+            getattr(cache, name)[:, slot:slot + 1, :seq] = getattr(prefix, name)
     return cache

@@ -2,9 +2,8 @@
 (counterpart of ``repro.quant.policy``).
 
 Model code calls ``quant.dot(x, w, layer_class)`` unconditionally, as in the
-reference.  Only the full-precision policy (``cfg.quant is None``) exists in
-this port: the int8 matmuls and the int8 KV cache come with the int8 item of
-ROADMAP queue 1, and any int8 policy raises until then.
+reference; the policy runs the plain matmul or the int8 one, keyed by the
+layer class the call site declares.
 """
 
 from __future__ import annotations
@@ -15,23 +14,37 @@ from typing import Optional
 import torch
 
 from .config import QuantConfig
+from .quantize import int8_dot, int8_dot_batched
 
 
 @dataclasses.dataclass(frozen=True)
 class Quant:
     cfg: Optional[QuantConfig] = None
 
-    def __post_init__(self):
-        if self.cfg is not None:
-            raise NotImplementedError(
-                "int8 quantization is not ported yet (ROADMAP queue 1, int8)"
-            )
+    def active(self, layer_class: str) -> bool:
+        return self.cfg is not None and self.cfg.active_for(layer_class)
+
+    @property
+    def per_channel(self) -> bool:
+        return self.cfg is not None and self.cfg.granularity == "per_channel"
+
+    @property
+    def quantized_kv(self) -> bool:
+        return self.cfg is not None and self.cfg.kv_cache
 
     def dot(self, x: torch.Tensor, w: torch.Tensor, layer_class: str) -> torch.Tensor:
-        """``x [..., d] @ w [d, f]`` in the activations' precision."""
-        return x @ w
+        """``x [..., d] @ w [d, f]``, int8 when the policy covers the class."""
+        if not self.active(layer_class):
+            return x @ w
+        return int8_dot(x, w, per_channel=self.per_channel)
+
+    def dot_batched(self, x: torch.Tensor, w: torch.Tensor, layer_class: str) -> torch.Tensor:
+        """Expert-batched ``x [E, ..., d] @ w [E, d, f]`` (MoE matmuls)."""
+        if not self.active(layer_class):
+            return torch.einsum("e...d,edf->e...f", x, w)
+        return int8_dot_batched(x, w, per_channel=self.per_channel)
 
 
 def get_quant(cfg) -> Quant:
-    """Policy for a ``ModelConfig``; raises for an int8 policy."""
+    """Policy for a ``ModelConfig`` (a no-op policy when quant is unset)."""
     return Quant(getattr(cfg, "quant", None))

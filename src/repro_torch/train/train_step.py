@@ -1,9 +1,12 @@
 """Training step factory (counterpart of ``repro.train.train_step``): loss
 and gradients by ``torch.autograd.grad`` over the param leaves, then the
-optimizer, with optional microbatch gradient accumulation.
+optimizer, with optional microbatch gradient accumulation and optional
+int8 gradient compression with error feedback.
 
 ``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
-returns new params and state and leaves its inputs as they were.
+(compressed: ``(params, opt_state, batch, residual) -> (params, opt_state,
+residual, metrics)``) returns new params and state and leaves its inputs as
+they were.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import lm_loss
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.optim.grad_compress import compress_with_feedback, dequantize_int8
 
 
 def _with_leaves(params: Any, leaves: list) -> Any:
@@ -42,13 +46,11 @@ def make_train_step(
     num_microbatches: int = 1,
     compress_grads: bool = False,
 ):
-    """Returns ``train_step(params, opt_state, batch)``.  With microbatches
-    the batch is split along dim 0, the gradients are summed in fp32 and
-    averaged (so the optimizer sees fp32 gradients, as in the reference)."""
-    if compress_grads:
-        raise NotImplementedError(
-            "int8-compressed gradient reduction is not ported yet (ROADMAP queue 1 item 4, int8)"
-        )
+    """Returns ``train_step(params, opt_state, batch)`` (with
+    ``compress_grads``, ``train_step(params, opt_state, batch, residual)``).
+    With microbatches the batch is split along dim 0, the gradients are
+    summed in fp32 and averaged (so the optimizer sees fp32 gradients, as in
+    the reference)."""
 
     def compute_grads(params, batch):
         if num_microbatches == 1:
@@ -65,13 +67,26 @@ def make_train_step(
         inv = 1.0 / num_microbatches
         return loss_sum * inv, tree_map(lambda g: g * inv, grads)
 
-    def train_step(params, opt_state, batch):
-        loss, grads = compute_grads(params, batch)
+    def update(params, opt_state, loss, grads):
         new_params, new_opt = optimizer.update(grads, opt_state, params)
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
         return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
 
-    return train_step
+    if not compress_grads:
+        def train_step(params, opt_state, batch):
+            return update(params, opt_state, *compute_grads(params, batch))
+
+        return train_step
+
+    def train_step_compressed(params, opt_state, batch, residual):
+        # int8 quantization with error feedback: the dequantized values
+        # feed the optimizer, the quantization error carries to next step.
+        loss, grads = compute_grads(params, batch)
+        q, scales, new_residual = compress_with_feedback(grads, residual)
+        new_params, new_opt, metrics = update(params, opt_state, loss, tree_map(dequantize_int8, q, scales))
+        return new_params, new_opt, new_residual, metrics
+
+    return train_step_compressed
 
 
 def make_eval_step(cfg: ModelConfig):

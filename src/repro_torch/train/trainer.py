@@ -5,9 +5,10 @@ watchdog, async checkpointing and deterministic data (counterpart of
 Each step lands in the trainer's metrics registry
 (``train_steps_total``/``train_tokens_total`` counters,
 ``train_step_seconds`` histogram, loss/grad-norm/tokens-per-s gauges).
-Not yet ported: the mesh, the reference's per-step MFU gauge, its spans and
-its JSONL metrics stream (ROADMAP queue 1 items 7 and 8), and the
-int8-compressed gradients (item 4).
+With ``compress_grads`` the gradients go through int8 with error feedback
+and the residual is part of the state and of the checkpoint.  Not yet
+ported: the mesh, the reference's per-step MFU gauge, its spans and its
+JSONL metrics stream (ROADMAP queue 1 items 7 and 8).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from repro_torch.dist.fault import PreemptionHandler, StepWatchdog
 from repro_torch.models import init_params
 from repro_torch.obs import Registry
 from repro_torch.optim import make_optimizer
+from repro_torch.optim.grad_compress import init_residual
 from repro_torch.optim.schedules import cosine_with_warmup
 from .train_step import make_train_step
 
@@ -41,6 +43,9 @@ class TrainerConfig:
     log_every: int = 10
     seed: int = 0
     watchdog_factor: float = 10.0
+    # int8-compressed gradients with error feedback
+    # (repro_torch.optim.grad_compress); adds a residual to the state.
+    compress_grads: bool = False
 
 
 class Trainer:
@@ -72,13 +77,19 @@ class Trainer:
 
         sched = cosine_with_warmup(tcfg.peak_lr, tcfg.warmup_steps, tcfg.total_steps)
         self.optimizer = make_optimizer(tcfg.optimizer, lr=sched)
-        self.step_fn = make_train_step(cfg, self.optimizer, num_microbatches=tcfg.num_microbatches)
+        self.step_fn = make_train_step(
+            cfg, self.optimizer, num_microbatches=tcfg.num_microbatches,
+            compress_grads=tcfg.compress_grads,
+        )
 
     # -- state ------------------------------------------------------------
 
     def init_state(self) -> dict:
         params = init_params(self.cfg, self.tcfg.seed, self.device)
-        return {"params": params, "opt": self.optimizer.init(params), "step": 0}
+        state = {"params": params, "opt": self.optimizer.init(params), "step": 0}
+        if self.tcfg.compress_grads:
+            state["residual"] = init_residual(params)
+        return state
 
     def restore_or_init(self) -> dict:
         latest = self.ckpt.latest_step()
@@ -95,7 +106,7 @@ class Trainer:
         """Step ``state`` (default: the latest checkpoint, else fresh
         params) up to ``total_steps``; returns it with ``losses``."""
         state = state or self.restore_or_init()
-        ckpt_keys = ("params", "opt")
+        ckpt_keys = ("params", "opt") + (("residual",) if self.tcfg.compress_grads else ())
         losses = []
         tokens_per_batch = self.shape.global_batch * self.shape.seq_len
         while state["step"] < self.tcfg.total_steps:
@@ -105,10 +116,17 @@ class Trainer:
             step = state["step"]
             batch = {k: torch.as_tensor(v, device=self.device) for k, v in self.data.batch(step).items()}
             self.watchdog.start_step()
-            params, opt, metrics = self.step_fn(state["params"], state["opt"], batch)
+            if self.tcfg.compress_grads:
+                params, opt, residual, metrics = self.step_fn(
+                    state["params"], state["opt"], batch, state["residual"]
+                )
+                new_state = {"params": params, "opt": opt, "residual": residual, "step": step + 1}
+            else:
+                params, opt, metrics = self.step_fn(state["params"], state["opt"], batch)
+                new_state = {"params": params, "opt": opt, "step": step + 1}
             loss = metrics["loss"].item()  # waits for the step, as block_until_ready
             dur = self.watchdog.end_step()
-            state = {"params": params, "opt": opt, "step": step + 1}
+            state = new_state
             gnorm = metrics["grad_norm"].item()
             losses.append(loss)
             self._steps_total.inc()

@@ -29,11 +29,14 @@ def test_config_equals_reference(arch, kind):
 
 
 def test_int8_policy_parses_and_is_refused():
+    """The int8 policy parses, equals the reference's, and is active (the
+    name is kept from when the port refused it)."""
     ours = torch_registry.get_smoke_config("olmo-1b", "int8")
     ref = jax_registry.get_smoke_config("olmo-1b", "int8")
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, int8"):
-        get_quant(ours)
+    quant = get_quant(ours)
+    assert quant.per_channel and quant.quantized_kv
+    assert all(quant.active(cls) for cls in ("mlp", "attention", "moe"))
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -46,6 +49,7 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "for want in ('repro_torch.launch.serve', 'repro_torch.bridge', 'repro_torch.launch.tune',\n"
+        "             'repro_torch.models.moe', 'repro_torch.quant.quantize', 'repro_torch.optim.grad_compress',\n"
         "             'repro_torch.kernels.pwl_exp2.kernel', 'repro_torch.core.fsa_sim'):\n"
         "    assert want in names, (want, names)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"

@@ -509,3 +509,80 @@ def test_run_tune_paper_on_the_card(cuda_device):
     report = run_tune("paper", seed=0, paper_check_seq=512, device="cuda")
     assert report["paper_checks_ok"] and report["sim_checks_ok"]
     assert report["mesh_devices"] == torch.cuda.device_count()
+
+
+# -- int8 products and MoE on the card ------------------------------------------------
+
+
+@pytest.mark.parametrize("per_channel", [True, False])
+@pytest.mark.parametrize("rows", [4, 17, 300])
+def test_int8_products_on_the_card_equal_the_cpu(cuda_device, rows, per_channel):
+    """int8_dot and int8_dot_batched through torch._int_mm (fewer than 17
+    rows padded) give the CPU's exact int32 accumulators and outputs, bit
+    for bit."""
+    from repro_torch.quant import int8_dot, int8_dot_batched, quantize
+
+    gen = torch.Generator().manual_seed(rows)
+    x = torch.randn((rows, 256), generator=gen).to(torch.bfloat16)
+    w = (torch.randn((256, 128), generator=gen) / 16).to(torch.bfloat16)
+    xe = torch.randn((3, rows, 256), generator=gen).to(torch.bfloat16)
+    we = (torch.randn((3, 256, 64), generator=gen) * torch.tensor([1e-2, 1.0, 1e2])[:, None, None]).to(torch.bfloat16)
+    for fn, a, b, experts, calls in ((int8_dot, x, w, False, 1), (int8_dot_batched, xe, we, True, 3)):
+        before = quantize.int_mm_calls
+        acc, _, _ = quantize.int8_accumulate(a.to(cuda_device), b.to(cuda_device), per_channel, experts)
+        assert quantize.int_mm_calls - before == calls
+        assert torch.equal(acc.cpu(), quantize.int8_accumulate(a, b, per_channel, experts)[0])
+        out = fn(a.to(cuda_device), b.to(cuda_device), per_channel=per_channel)
+        assert torch.equal(out.cpu(), fn(a, b, per_channel=per_channel))
+
+
+@pytest.mark.parametrize("width", [16, 32, 64, 96])
+def test_int8_dot_takes_every_row_count_at_small_widths(cuda_device, width):
+    """Rows padded to a multiple of 32: cuBLASLt refused 17 rows at
+    contraction width 64 (the smoke MoE engine's decode step)."""
+    from repro_torch.quant import int8_dot
+
+    gen = torch.Generator().manual_seed(width)
+    w = torch.randn((width, 32), generator=gen)
+    for rows in range(1, 41):
+        x = torch.randn((rows, width), generator=gen)
+        assert torch.equal(int8_dot(x.to(cuda_device), w.to(cuda_device)).cpu(), int8_dot(x, w))
+
+
+def test_int8_product_refuses_a_width_int_mm_cannot_take(cuda_device):
+    from repro_torch.quant import int8_dot
+
+    x, w = torch.randn((32, 12), device=cuda_device), torch.randn((12, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_dot(x, w)
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_moe_engine_on_the_card_equals_sequential_decode(cuda_device, quant):
+    """qwen3-moe smoke in fp32 with capacity_factor E / k (prefill drops
+    nothing): the engine's greedy tokens equal dropless sequential decode."""
+    cfg = get_smoke_config("qwen3-moe-235b-a22b", quant)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
+    params = init_params(cfg, 0, device=cuda_device)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 19, 40)]
+    engine = ServeEngine(cfg, params, batch_size=2, max_len=64, device=cuda_device)
+    for i, p in enumerate(prompts):
+        engine.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+    done = {r.rid: r.output for r in engine.run()}
+    for i, p in enumerate(prompts):
+        assert done[i] == sequential_greedy_decode(cfg, params, p, 6, max_len=64)
+
+
+def test_moe_forward_is_bit_equal_across_calls(cuda_device):
+    """The combine sums each token's rows in a fixed order (no atomics)."""
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-moe-235b-a22b"), d_model=256, dtype="bfloat16")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=32, top_k=8))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = moe.moe_params(gen, cfg, torch.bfloat16)
+    x = torch.randn((2, 512, 256), generator=gen, device=cuda_device).to(torch.bfloat16)
+    first = moe.moe_forward(x, params, cfg)
+    for _ in range(3):
+        assert torch.equal(moe.moe_forward(x, params, cfg), first)

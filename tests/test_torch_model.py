@@ -5,9 +5,16 @@ embeddings), yi-9b (RMSNorm, GQA with rep 2), nemotron-4-15b (squared ReLU,
 LayerNorm), qwen2.5-32b (qkv bias) and qwen2-vl-7b (M-RoPE; its forward
 takes positions whose three sections differ) through the forward, prefill
 and decode; hubert-xlarge (the encoder family: frame embeddings in,
-bidirectional attention) through the forward.  Logits and caches are held
-at 1e-4: both sides compute in fp32, but matmul sums run in another order
-and the differences pass through two layers and the LM head.
+bidirectional attention) through the forward.  The MoE family runs the same
+checks: qwen3-moe-235b-a22b (QK-norm, capacity-bound routing in forward and
+prefill, dropless in decode) and arctic-480b (the dense residual beside the
+experts).  So do the int8 policies (``arch@flag``): olmo-1b under ``int8``
+(int8 projections and the int8 KV cache), qwen3-moe under ``int8`` (int8
+expert products), arctic under ``int8-per-tensor`` and yi-9b under
+``int8-kv-only``.  Logits and caches are held at 1e-4: both sides compute
+in fp32, but matmul sums run in another order and the differences pass
+through two layers and the LM head (the gap seen is ~1e-6, int8 included:
+the int8 payloads come out equal).
 """
 
 import numpy as np
@@ -25,13 +32,15 @@ from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["olmo-1b", "yi-9b", "nemotron-4-15b", "qwen2.5-32b", "qwen2-vl-7b"]
+ARCHS = ["olmo-1b", "yi-9b", "nemotron-4-15b", "qwen2.5-32b", "qwen2-vl-7b",
+         "qwen3-moe-235b-a22b", "arctic-480b", "olmo-1b@int8", "qwen3-moe-235b-a22b@int8",
+         "arctic-480b@int8-per-tensor", "yi-9b@int8-kv-only"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
 def setup(request):
-    arch = request.param
-    jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
+    arch, _, quant = request.param.partition("@")
+    jcfg, tcfg = jax_smoke_config(arch, quant or None), get_smoke_config(arch, quant or None)
     jparams = jm.init_params(jcfg, jax.random.PRNGKey(0))
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, tcfg, jparams, tparams
@@ -39,6 +48,15 @@ def setup(request):
 
 def _close(ours, ref):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
+
+
+def _caches_close(tcache, jcache):
+    """Every leaf of the two caches (a KVCache, or a QuantKVCache whose int8
+    payloads must then be equal), which must be of one type."""
+    assert type(tcache).__name__ == type(jcache).__name__
+    assert tcache._fields == jcache._fields
+    for name in tcache._fields:
+        _close(getattr(tcache, name).float(), np.asarray(getattr(jcache, name)).astype(np.float32))
 
 
 def test_bridge_keeps_structure(setup):
@@ -49,6 +67,12 @@ def test_bridge_keeps_structure(setup):
     expect_none = jcfg.norm_type == "non_parametric"
     assert (tparams["final_norm"] is None) == expect_none
     assert (tparams["layers"]["attn_norm"] is None) == expect_none
+    if jcfg.moe is not None:  # stacked experts [L, E, d, f] and the fp32 router
+        moe = tparams["layers"]["moe"]
+        assert moe["gate"].shape == (jcfg.num_layers, jcfg.moe.num_experts, jcfg.d_model, jcfg.moe.d_ff_expert)
+        assert moe["down"].shape == (jcfg.num_layers, jcfg.moe.num_experts, jcfg.moe.d_ff_expert, jcfg.d_model)
+        assert moe["router"].dtype == torch.float32
+        assert ("dense_mlp" in tparams["layers"]) == jcfg.moe.dense_residual
 
 
 def test_forward_logits(setup):
@@ -93,8 +117,7 @@ def test_prefill_then_decode(setup, chunk_size):
         tparams, tcfg, torch.from_numpy(tokens), tcache, lengths, chunk_size=chunk_size
     )
     _close(out, ref)
-    for name in ("k", "v", "lengths"):
-        _close(getattr(tcache, name), getattr(jcache, name))
+    _caches_close(tcache, jcache)
 
     # Three decode steps, each slot at its own depth.
     for step in range(3):
@@ -103,8 +126,7 @@ def test_prefill_then_decode(setup, chunk_size):
         ref, jcache = jm.decode_step(jparams, jcfg, jnp.asarray(tok), jcache, jnp.asarray(pos))
         out, tcache = tm.decode_step(tparams, tcfg, torch.from_numpy(tok), tcache, torch.from_numpy(pos))
         _close(out, ref)
-    for name in ("k", "v", "lengths"):
-        _close(getattr(tcache, name), getattr(jcache, name))
+    _caches_close(tcache, jcache)
 
 
 def test_decode_at_capacity_drops_the_write(setup):
@@ -120,22 +142,27 @@ def test_decode_at_capacity_drops_the_write(setup):
     ref, jcache = jm.decode_step(jparams, jcfg, jnp.asarray(tok), jcache, jnp.asarray(pos))
     out, tcache = tm.decode_step(tparams, tcfg, torch.from_numpy(tok), tcache, torch.from_numpy(pos))
     _close(out, ref)
-    for name in ("k", "v", "lengths"):
-        _close(getattr(tcache, name), getattr(jcache, name))
+    _caches_close(tcache, jcache)
     assert not tcache.k[:, 0].any()  # the full slot kept its (zero) rows
 
 
 def test_insert_cache(setup):
+    """A random prefix (each leaf of the config's cache type) into slot 1."""
     jcfg, tcfg, _, _ = setup
     rng = np.random.default_rng(2)
-    shape = (jcfg.num_layers, 1, 5, jcfg.num_kv_heads, jcfg.resolved_head_dim)
-    k, v = rng.standard_normal(shape).astype(np.float32), rng.standard_normal(shape).astype(np.float32)
-    lengths = np.full((jcfg.num_layers, 1), 5, np.int32)
-    jprefix = jm.KVCache(k=jnp.asarray(k), v=jnp.asarray(v), lengths=jnp.asarray(lengths))
+    template = jm.init_cache(jcfg, 1, 5)
+    prefix = {}
+    for name, leaf in zip(template._fields, template):
+        if name == "lengths":
+            prefix[name] = np.full(leaf.shape, 5, np.int32)
+        elif leaf.dtype == jnp.int8:
+            prefix[name] = rng.integers(-127, 128, leaf.shape).astype(np.int8)
+        else:
+            prefix[name] = rng.standard_normal(leaf.shape).astype(np.float32)
+    jprefix = type(template)(**{k: jnp.asarray(v) for k, v in prefix.items()})
     ref = jm.insert_cache(jm.init_cache(jcfg, 3, 8), jprefix, jnp.asarray(1, jnp.int32))
-    tprefix = tm.KVCache(k=torch.from_numpy(k), v=torch.from_numpy(v), lengths=torch.from_numpy(lengths))
+    tprefix = type(tm.init_cache(tcfg, 1, 5, "cpu"))(**{k: torch.from_numpy(v) for k, v in prefix.items()})
     out = tm.insert_cache(tm.init_cache(tcfg, 3, 8, "cpu"), tprefix, 1)
-    for name in ("k", "v", "lengths"):
-        _close(getattr(out, name), getattr(ref, name))
+    _caches_close(out, ref)
     with pytest.raises(ValueError):
         tm.insert_cache(tm.init_cache(tcfg, 3, 4, "cpu"), tprefix, 1)  # prefix too long

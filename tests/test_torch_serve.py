@@ -1,7 +1,12 @@
 """repro_torch ServeEngine against repro's on bridged olmo-1b smoke weights
-(fp32, CPU).  Greedy tokens must be identical: to the JAX engine's, and to
-the port's own sequential single-request decode.  Seeds are fixed, so the
-outcome is deterministic."""
+(fp32, CPU), and on qwen3-moe-235b-a22b smoke weights (MoE: capacity-bound
+prefill, dropless decode) under no quantization and under ``int8``.  Greedy
+tokens must be identical: to the JAX engine's, and to the port's own
+sequential single-request decode (for MoE with ``capacity_factor = E / k``,
+where prefill drops nothing: sequential decode is dropless).  Seeds are
+fixed, so the outcome is deterministic."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -29,14 +34,23 @@ MAX_NEW = 6
 PROMPT_LENS = (3, 17, 9, 30, 5)  # buckets 16 and 32 (and 48 for 30)
 
 
-@pytest.fixture(scope="module")
-def model():
-    jcfg = jax_smoke_config(ARCH)
+def _model(arch, quant=None):
+    jcfg = jax_smoke_config(arch, quant)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, jcfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
-    return jcfg, jparams, get_smoke_config(ARCH), tparams, prompts
+    return jcfg, jparams, get_smoke_config(arch, quant), tparams, prompts
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _model(ARCH)
+
+
+@pytest.fixture(scope="module", params=["none", "int8"])
+def moe_model(request):
+    return _model("qwen3-moe-235b-a22b", request.param)
 
 
 def _serve(engine, request_cls, prompts, max_new=MAX_NEW):
@@ -95,3 +109,39 @@ def test_top_k_one_is_greedy(model):
     greedy, _ = _port(model, batch_size=2)
     sampled, _ = _port(model, batch_size=2, sampling=SamplingConfig(temperature=1.0, top_k=1, seed=3))
     assert sampled == greedy
+
+
+def test_moe_greedy_tokens_equal_jax_engine(moe_model):
+    """qwen3-moe smoke through both engines, 5 requests over 4 slots."""
+    jcfg, jparams, _, _, prompts = moe_model
+    ref = _serve(JaxServeEngine(jcfg, jparams, batch_size=4, max_len=MAX_LEN), JaxRequest, prompts)
+    out, _ = _port(moe_model, batch_size=4)
+    assert out == ref
+
+
+def test_moe_greedy_tokens_equal_sequential_decode(moe_model):
+    """With capacity_factor = E / k the prefill's capacity is its whole
+    token pool, nothing drops, and the engine equals dropless sequential
+    decode."""
+    _, _, cfg, params, prompts = moe_model
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    engine = ServeEngine(cfg, params, batch_size=2, max_len=MAX_LEN, device="cpu")
+    out = _serve(engine, Request, prompts)
+    for i, p in enumerate(prompts):
+        assert out[i] == sequential_greedy_decode(cfg, params, p, MAX_NEW, max_len=MAX_LEN)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8-kv-only"])
+def test_int8_chunked_equals_unchunked_and_sequential(quant):
+    """olmo-1b under an int8 policy: per-row activation scales and per-token
+    KV scales make chunked prefill, unchunked prefill and sequential decode
+    write and read the same values, so greedy tokens agree."""
+    m = _model(ARCH, quant)
+    _, _, cfg, params, prompts = m
+    out, engine = _port(m, batch_size=2)
+    assert type(engine.cache).__name__ == "QuantKVCache"
+    chunked, _ = _port(m, batch_size=2, prefill_chunk=4)
+    assert chunked == out
+    for i, p in enumerate(prompts):
+        assert out[i] == sequential_greedy_decode(cfg, params, p, MAX_NEW, max_len=MAX_LEN)

@@ -1,12 +1,22 @@
 """repro_torch's training path against repro's on bridged weights: lm_loss
-and its gradients, remat, microbatches, the AdamW and Adafactor updates,
-the schedules, N steps of the Trainer, and checkpoint resume.  Smoke
-configs in fp32 on the CPU; the same numpy batches go to both packages.
+and its gradients (dense, MoE, and under int8), remat, microbatches, the
+AdamW and Adafactor updates, the schedules, the int8-compressed train step,
+N steps of the Trainer, and checkpoint resume.  Smoke configs in fp32 on
+the CPU; the same numpy batches go to both packages.
 
 Tolerances (stated per check):
   * loss and each gradient leaf: 1e-5 of the leaf's largest |value| — both
     sides compute in fp32 and the matmul sums run in another order (the
     gap seen is ~1e-6);
+  * the compressed step: loss and grad norm 1e-5 relative.  Where a
+    gradient that differs by fp32 noise straddles a rounding point of the
+    int8 grid, its payload lands one step apart on the two sides, so its
+    residual differs by one step (at most 2 max|residual|) and its param by
+    one more Adam step (at most 2 lr).  So: the residual within
+    1e-5 of its leaf's gradient scale (at least 254 times its largest
+    |value|) and the params within 1e-5 of each leaf's largest |value|,
+    except at most max(2, 0.1%) elements a leaf, which must lie within
+    those flip bounds;
   * optimizer updates: fp32 1e-6 relative (elementwise arithmetic only);
     bf16 params one bf16 step (the update is rounded to bf16 twice);
   * Trainer: step 1's loss and grad norm 1e-5 relative; later steps 1e-3
@@ -46,7 +56,9 @@ GRAD_REL = 1e-5
 
 
 def _bridged(arch, seed=0):
-    jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
+    """``arch`` or ``arch@quant-flag``: the smoke configs and bridged params."""
+    arch, _, quant = arch.partition("@")
+    jcfg, tcfg = jax_smoke_config(arch, quant or None), get_smoke_config(arch, quant or None)
     jparams = jm.init_params(jcfg, jax.random.PRNGKey(seed))
     return jcfg, tcfg, jparams, params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
 
@@ -83,11 +95,15 @@ def _both(batch):
             {k: torch.as_tensor(v) for k, v in batch.items()})
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "hubert-xlarge", "qwen3-moe-235b-a22b", "arctic-480b",
+                                  "olmo-1b@int8", "qwen3-moe-235b-a22b@int8-per-tensor"])
 def test_lm_loss_and_grads_match_jax(arch):
     """olmo-1b: tokens, tied embeddings, causal.  hubert-xlarge: the encoder
     family, frame embeddings in, bidirectional attention, an untied head
-    (its token embedding gets zero gradient on both sides)."""
+    (its token embedding gets zero gradient on both sides).  qwen3-moe and
+    arctic: capacity-bound routing (the router's gradient through the
+    renormalised top-k probabilities; arctic's dense residual).  Under int8:
+    straight-through gradients of the int8 projections and experts."""
     jcfg, tcfg, jparams, tparams = _bridged(arch)
     if arch == "hubert-xlarge":
         rng = np.random.default_rng(1)
@@ -184,6 +200,38 @@ def test_schedules_match_jax():
         assert float(tfn(5)) == got[2]  # a Python int step works too
 
 
+def test_compressed_train_step_matches_jax():
+    """One int8-compressed step (AdamW) from the same params, batch and a
+    nonzero residual, as a later step of a run sees it (the error feedback
+    over several steps is held bit for bit in test_torch_quant.py; here
+    more steps would compound the flips below through the params)."""
+    jcfg, tcfg, jparams, tparams = _bridged("qwen3-moe-235b-a22b")
+    jopt, topt = jax_adamw.AdamW(lr=1e-3), adamw.AdamW(lr=1e-3)
+    jstep = jax.jit(jax_make_train_step(jcfg, jopt, compress_grads=True))
+    tstep = make_train_step(tcfg, topt, compress_grads=True)
+    rng = np.random.default_rng(3)
+    residual = jax.tree.map(lambda p: (rng.standard_normal(p.shape) * 1e-5).astype(np.float32), jparams)
+    jb, tb = _both(_lm_batch(jcfg.vocab_size))
+    *jout, jm_ = jstep(jparams, jopt.init(jparams), jb, jax.tree.map(jnp.asarray, residual))
+    *tout, tm_ = tstep(tparams, topt.init(tparams), tb, params_from_jax(residual, "cpu"))
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(tm_[key]), float(jm_[key]), rtol=GRAD_REL)
+    _assert_close_but_flips(tout[2], jout[2], 254 * GRAD_REL, lambda rmax: 2 * rmax)  # residual
+    _assert_close_but_flips(tout[0], jout[0], GRAD_REL, lambda _: 2 * 1e-3)  # params
+
+
+def _assert_close_but_flips(ours, ref, rel, flip_bound):
+    """Each leaf within ``rel`` of its largest |ref|, but for at most
+    max(2, 0.1%) elements within ``flip_bound(largest |ref|)``."""
+    ours = {k: to_numpy(v) for k, v in _flatten_with_paths(ours).items()}
+    for key, r in _jax_flat(ref).items():
+        rmax = max(float(np.abs(r).max()), 1e-30)
+        err = np.abs(ours[key] - r)
+        off = err > rel * rmax
+        assert off.sum() <= max(2, 1e-3 * off.size), (key, int(off.sum()), off.size)
+        assert (err[off] <= flip_bound(rmax) + rel * rmax).all(), (key, float(err.max()), rmax)
+
+
 def _trainer_cfg(tmp_path, name, **kw):
     base = dict(total_steps=4, ckpt_every=100, ckpt_dir=str(tmp_path / name),
                 warmup_steps=2, log_every=100)
@@ -240,6 +288,29 @@ def test_checkpoint_resume_continues_the_loss_sequence(tmp_path):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def test_compress_grads_resume_keeps_the_residual(tmp_path):
+    """With compress_grads the residual is state: it is checkpointed, and a
+    run preempted at step 2 and resumed gives the uninterrupted losses."""
+    _, tcfg, _, _ = _bridged("olmo-1b")
+    shape = ShapeConfig("t", 16, 2, "train")
+    whole = Trainer(tcfg, shape, TrainerConfig(**_trainer_cfg(tmp_path, "whole", compress_grads=True)),
+                    device="cpu").run()
+    assert set(whole) >= {"residual"} and any(r.abs().max() > 0 for r in adamw.tree_leaves(whole["residual"]))
+    kw = _trainer_cfg(tmp_path, "resumed", compress_grads=True, ckpt_every=1)
+
+    def preempt_after_2(state, _metrics):
+        if state["step"] == 2:
+            first.preempt.trigger()
+
+    first = Trainer(tcfg, shape, TrainerConfig(**kw), hooks={"on_step": preempt_after_2}, device="cpu")
+    part1 = first.run()
+    part2 = Trainer(tcfg, shape, TrainerConfig(**kw), device="cpu").run()
+    assert part1["step"] == 2 and part2["step"] == 4
+    assert part1["losses"] + part2["losses"] == whole["losses"]
+    for a, b in zip(adamw.tree_leaves(part2["residual"]), adamw.tree_leaves(whole["residual"])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_checkpoint_keeps_bf16_bits(tmp_path):
     """bf16 leaves go to disk as their bits and come back unchanged."""
     from repro_torch.checkpoint import CheckpointManager
@@ -263,7 +334,12 @@ def test_launcher_trains_and_refuses_unported_flags(monkeypatch, capsys, tmp_pat
     monkeypatch.setattr("sys.argv", argv)
     launcher.main()
     assert "done at step 2 on cpu" in capsys.readouterr().out
-    for flag in (["--quant", "int8"], ["--compress-grads"], ["--mesh", "2x1"]):
+    # int8 projections and int8-compressed gradients train (a fresh
+    # checkpoint directory: the state then holds the residual).
+    monkeypatch.setattr("sys.argv", argv[:-1] + [str(tmp_path / "ck8"), "--quant", "int8", "--compress-grads"])
+    launcher.main()
+    assert "done at step 2 on cpu" in capsys.readouterr().out
+    for flag in (["--mesh", "2x1"], ["--metrics-out", "m.jsonl"]):
         monkeypatch.setattr("sys.argv", argv + flag)
         with pytest.raises(SystemExit, match="not ported yet"):
             launcher.main()
