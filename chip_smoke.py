@@ -78,6 +78,27 @@ non-zero):
                must equal one sm90 launch per layer per prefill chunk.  One
                request's prefill logits are held against the naive-attention
                path on the card.
+ 12. spec    — (runs after serve, greedy and moe) speculative decoding
+               (repro_torch.spec) and telemetry: the serve phase's engine and
+               requests with SpecConfig(lookahead=4), self-draft and the int8
+               draft, unchunked and chunked; every forward launch sm90 and
+               exactly twice the serve phase's count (target and draft
+               prefills); tokens/s, TTFT, TPOT (per request, and amortized
+               over each round as the reference's histogram), verify and
+               draft steps, acceptance, peak memory, requests equal to the
+               vanilla run's.  The self-draft unchunked run is traced: the
+               Chrome trace must hold one verify span a verify step and k + 1
+               draft steps a draft span, and the registry's serve_*_total
+               counters must equal engine.stats; its MFU gauges are printed
+               (against the paper's FSA array, not the card).  fp32 gate
+               (after greedy): the greedy phase's prompts and one of 505
+               tokens (its second round writes past the 512-slot cache and
+               drops rows), self-draft and int8 draft under "none" and
+               self-draft under "int8-kv-only": tokens equal the vanilla
+               engine's but at a near-tie (the greedy phase's rule); all
+               prefills simt.  MoE (after moe): qwen3-moe at full width,
+               depth 2, fp32, capacity_factor E / k, self-draft against the
+               vanilla engine, every verify and draft MoE call dropless.
   7. greedy  — the same model in fp32: the engine's greedy tokens must equal
                sequential_greedy_decode's, or the reference's top two logits
                at the first difference must lie within 1e-3 (a near-tie);
@@ -89,7 +110,9 @@ non-zero):
                and read after (forward, all sm90: layers x 2 x steps, with
                the remat recompute; dQ and dK/dV, all sm90: layers x steps);
                the loss must be finite at every step and lower at the last
-               than at the first.
+               than at the first; its JSONL metrics stream must read back
+               through launch/scrape_log.py with a finite loss at every
+               step, and its MFU gauge is printed.
   9. grads   — one batch's gradients at full width and depth 2, kernel path
                against the naive-attention path, in fp32 (the simt
                backward pair) and in bf16 (the sm90 pair), one launch of
@@ -157,9 +180,11 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd  # noqa: E402
 from repro_torch.kernels.pwl_exp2 import kernel as pwl  # noqa: E402
+from repro_torch.launch import scrape_log  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.attention import attention_forward  # noqa: E402
 from repro_torch.models.layers import apply_norm  # noqa: E402
+from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.models.model import decode_step, init_cache, init_params, prefill_step  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.quant import QUANT_FLAGS, int8_dot, int8_dot_batched, parse_quant, quantize  # noqa: E402
@@ -169,6 +194,7 @@ from repro_torch.serve import (  # noqa: E402
     request_latencies,
     sequential_greedy_decode,
 )
+from repro_torch.spec import SpecConfig  # noqa: E402
 from repro_torch.train.train_step import value_and_grad  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.tune import objectives as tune_objectives  # noqa: E402
@@ -211,6 +237,9 @@ NEAR_TIE = 1e-3
 # 1e-6 of values of order 1 (an estimate), which moves a router probability
 # of about 1/128 by about 1e-8; 1e-7 is ten times that.
 ROUTER_NEAR_TIE = 1e-7
+# The MFU gauges (repro_torch.obs.mfu) divide by the paper's FSA array, as
+# the reference does, not by this card: on the H100 they can read above 1.
+MFU_DENOMINATOR = "the paper's FSA array (N = 128 at 1.5 GHz, 49.15 TFLOP/s), not the H100"
 
 
 def emit(phase: str, **fields) -> None:
@@ -1009,6 +1038,7 @@ def serve(cfg, params, phase: str = "serve") -> dict:
     warm = ServeEngine(cfg, params, batch_size=4, max_len=2048, device="cuda")
     warm.submit(Request(rid=-1, prompt=prompts[0], max_new_tokens=2))
     warm.run()
+    del warm  # its cache must not count in the runs' peak memory
 
     runs, launches, outputs = [], 0, {}
     for chunk in (None, 512):
@@ -1055,7 +1085,7 @@ def serve(cfg, params, phase: str = "serve") -> dict:
         runs.append(run)
     same = sum(outputs[None][i] == outputs[512][i] for i in outputs[None])
     emit(phase, chunked_equals_unchunked=f"{same}/{len(prompts)} requests")
-    return dict(runs=runs, launches=launches,
+    return dict(runs=runs, launches=launches, outputs=outputs,
                 prefill_vs_naive=_prefill_vs_naive(cfg, params, prompts[3], phase))
 
 
@@ -1076,6 +1106,19 @@ def _reference_top2_gap(cfg, params, tokens) -> float:
         logits, cache = decode_step(params, cfg, torch.tensor([[int(t)]], device="cuda"), cache, i)
     top = torch.topk(logits[0, -1].float(), 2).values
     return float(top[0] - top[1])
+
+
+def _near_tie(cfg, params, context) -> dict:
+    """The reference path's top-2 logit gap after ``context`` (sequential
+    decode) and, for a MoE model, its smallest router margin on the way; a
+    difference of two paths there is allowed when either is a near-tie."""
+    moe.reset_counts()
+    moe.track_margins = cfg.moe is not None
+    gap = _reference_top2_gap(cfg, params, context)
+    moe.track_margins = False
+    margin = moe.min_router_margin()
+    row = dict(reference_top2_gap=gap, **({"reference_min_router_margin": margin} if cfg.moe is not None else {}))
+    return dict(row, near_tie=gap <= NEAR_TIE or margin <= ROUTER_NEAR_TIE)
 
 
 def greedy(cfg, phase: str = "greedy") -> dict:
@@ -1101,14 +1144,9 @@ def greedy(cfg, phase: str = "greedy") -> dict:
             if done[i] == ref:
                 continue
             t = next(j for j, (a, b) in enumerate(zip(done[i], ref)) if a != b)
-            moe.reset_counts()
-            moe.track_margins = cfg.moe is not None
-            gap = _reference_top2_gap(cfg, params, np.concatenate([p, ref[:t]]))
-            moe.track_margins = False
-            margin = moe.min_router_margin()
-            emit(phase, rid=i, first_difference=t, reference_top2_gap=gap,
-                 **({"reference_min_router_margin": margin} if cfg.moe is not None else {}))
-            if gap > NEAR_TIE and not margin <= ROUTER_NEAR_TIE:
+            tie = _near_tie(cfg, params, np.concatenate([p, ref[:t]]))
+            emit(phase, rid=i, first_difference=t, **{k: v for k, v in tie.items() if k != "near_tie"})
+            if not tie["near_tie"]:
                 raise AssertionError(f"request {i}: engine {done[i]} != sequential {ref}")
             near_ties += 1
     emit(phase, arch=cfg.name, layers=cfg.num_layers, requests=len(prompts), tokens_each=MAX_NEW,
@@ -1130,10 +1168,13 @@ TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
 
 
 def train(cfg) -> dict:
-    """The port's Trainer on full-width olmo-1b; launch counts of the run."""
+    """The port's Trainer on full-width olmo-1b; launch counts of the run,
+    and its JSONL metrics stream read back through scrape_log."""
     with tempfile.TemporaryDirectory() as ckpt_dir:
+        jsonl = Path(ckpt_dir) / "metrics.jsonl"
         tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1, ckpt_dir=ckpt_dir,
-                             peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, log_every=1, seed=0)
+                             peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, log_every=1, seed=0,
+                             metrics_jsonl=str(jsonl))
         trainer = Trainer(cfg, TRAIN_SHAPE, tcfg, device="cuda")
         state = trainer.init_state()
         torch.cuda.synchronize()
@@ -1145,6 +1186,7 @@ def train(cfg) -> dict:
         launches = dict(flash_fwd=flash.launch_counts["sm90"], flash_fwd_simt=flash.launch_counts["simt"],
                         **flash_bwd.launch_counts)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        records = scrape_log.scrape(jsonl.read_text())
     losses = state["losses"]
     steps = list(trainer.watchdog.durations)
     tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
@@ -1156,6 +1198,11 @@ def train(cfg) -> dict:
          seq=TRAIN_SHAPE.seq_len, losses=losses, step_seconds=steps, step_s_median=step_s,
          tokens_per_s=tokens / step_s, max_memory_allocated_gb=peak_gb,
          launches=launches, expected_launches=expected)
+    mfu = trainer.registry.get("mfu").labels(phase="train").value
+    emit("train", metrics_jsonl_records=len(records), metrics_jsonl_losses=[r["loss"] for r in records],
+         mfu_vs_paper_fsa_array=mfu, mfu_denominator=MFU_DENOMINATOR)
+    if len(records) != TRAIN_STEPS or not all(math.isfinite(r["loss"]) for r in records):
+        raise AssertionError(f"scrape_log read {len(records)} records of the metrics stream: {records}")
     if launches != expected:
         raise AssertionError(f"training launched {launches}, expected {expected}")
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
@@ -1364,6 +1411,209 @@ def moe_phase() -> dict:
                 arctic=arcticked)
 
 
+# -- phase 12: speculative decoding and telemetry ----------------------------------------
+
+SPEC_K = 4
+# The greedy phase's prompts (the same rng), and one of 505 tokens: in a
+# 512-slot cache its second round writes past capacity and drops rows.
+SPEC_GREEDY_PROMPT_LENS = GREEDY_PROMPT_LENS + (505,)
+
+
+def _spec_run(cfg, params, prompts, spec, *, batch_size, max_len, chunk=None, tracer=None, record=False):
+    """Serve ``prompts`` speculatively with counts reset before and read
+    after; with ``record``, every verify round's positions, live slots and
+    ``accepted`` (on the device, read after the run) are kept to find the
+    first rejected draft."""
+    engine = ServeEngine(cfg, params, batch_size=batch_size, max_len=max_len, prefill_chunk=chunk,
+                         spec=spec, tracer=tracer, device="cuda")
+    rounds = []
+    if record:
+        verify = engine._verify
+
+        def recording(params_, cache, tokens, positions):
+            greedy_, accepted, cache = verify(params_, cache, tokens, positions)
+            live = {i: (r.rid, len(r.output)) for i, r in enumerate(engine.slots) if r is not None}
+            rounds.append((engine._positions.copy(), live, accepted))
+            return greedy_, accepted, cache
+
+        engine._verify = recording
+    for i, p in enumerate(prompts):
+        engine.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_path_counts()
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(flash=dict(flash.launch_counts), **_path_counts())
+    return engine, {r.rid: r for r in done}, dt, counts, rounds
+
+
+def _first_rejection(rounds, k, max_len):
+    """(rid, output index) of the first live draft the target rejected
+    where the cache's capacity did not cap it, and the rows dropped past
+    capacity over the run."""
+    first, dropped = None, 0
+    for positions, live, accepted in rounds:
+        accepted = accepted.cpu().numpy()
+        for slot, (rid, emitted) in live.items():
+            cap = max_len - int(positions[slot]) - 1
+            dropped += max(int(positions[slot]) + k + 1 - max_len, 0)
+            if first is None and accepted[slot] < min(k, cap):
+                first = (rid, emitted + int(accepted[slot]))
+    return first, dropped
+
+
+def spec_serve(cfg, params, vanilla: dict) -> dict:
+    """The serve phase's engine and requests, speculative: self-draft and
+    the int8 draft, unchunked and chunked.  Every prefill (target and draft)
+    goes through the sm90 forward.  The self-draft unchunked run is traced
+    and its telemetry checked."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SERVE_PROMPT_LENS]
+    runs, launches, telemetry = [], 0, None
+    for draft_quant in (None, "int8"):
+        spec = SpecConfig(lookahead=SPEC_K, draft_quant=draft_quant)
+        # Warm-up (not counted, not timed): the draft policy's first calls.
+        _spec_run(cfg, params, prompts[:1], spec, batch_size=4, max_len=2048)
+        for chunk in (None, 512):
+            tracer = Tracer(process_name="chip_smoke spec") if draft_quant is None and chunk is None else None
+            engine, done, dt, counts, _ = _spec_run(cfg, params, prompts, spec, batch_size=4, max_len=2048,
+                                                    chunk=chunk, tracer=tracer)
+            expected = 2 * _expected_launches(engine, prompts, cfg)  # target and draft prefills
+            if counts["flash"] != dict(sm90=expected, simt=0):
+                raise AssertionError(f"spec forward launched {counts['flash']}, expected {expected} all sm90 "
+                                     f"(draft_quant={draft_quant}, prefill_chunk={chunk})")
+            if len(done) != len(prompts) or any(len(r.output) != MAX_NEW for r in done.values()):
+                raise AssertionError(f"spec engine finished {len(done)} requests, not all with {MAX_NEW} tokens")
+            launches += expected
+            ttft, tpot = request_latencies(done.values())
+            toks = sum(len(r.output) for r in done.values())
+            same = sum(done[i].output == vanilla[chunk][i] for i in done)
+            stats = engine.stats
+            run = dict(arch=cfg.name, layers=cfg.num_layers, quant=_quant_flag(cfg),
+                       draft="self" if draft_quant is None else "self@int8", lookahead=SPEC_K,
+                       prefill_chunk=chunk, requests=len(done), tokens=toks, seconds=dt, tokens_per_s=toks / dt,
+                       ttft_ms_p50=float(np.median(ttft)) * 1e3, tpot_ms_p50=float(np.median(tpot)) * 1e3,
+                       tpot_amortized_ms_p50=engine.registry.get("serve_tpot_seconds").percentile(50) * 1e3,
+                       verify_steps=stats["verify_steps"], draft_steps=stats["draft_steps"],
+                       acceptance=engine.acceptance_rate(), equal_to_vanilla=f"{same}/{len(done)} requests",
+                       max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       flash_launches_by_kernel=counts["flash"], stats=stats)
+            emit("spec", **run)
+            runs.append(run)
+            if tracer is not None:
+                telemetry = check_telemetry(engine, tracer)
+            del engine, done  # its caches must not count in the next run's peak
+    return dict(runs=runs, launches=launches, telemetry=telemetry)
+
+
+def check_telemetry(engine, tracer) -> dict:
+    """The traced run's Chrome trace: valid JSON, one verify span a verify
+    step, k + 1 draft steps a draft span, the request spans; the registry's
+    serve_*_total counters equal engine.stats; its MFU gauges."""
+    stats, k = engine.stats, engine.spec.lookahead
+    with tempfile.TemporaryDirectory() as d:
+        doc = json.loads(Path(tracer.save(str(Path(d) / "spec_trace.json"))).read_text())
+    events = doc["traceEvents"]
+    names = [e["name"] for e in events]
+    drafts = [e for e in events if e["name"] == "draft"]
+    # Where a round's time goes, from the spans: the K+1 draft steps, the
+    # verify, and a prefill (target; the draft's mirror is outside it).
+    span_ms = {name: float(np.mean([e["dur"] for e in events if e["name"] == name])) / 1e3
+               for name in ("draft", "verify", "prefill")}
+    counters = {key: int(engine.registry.get(f"serve_{key}_total").value) for key in stats}
+    mfu = {phase: engine.registry.get("mfu").labels(phase=phase).value for phase in ("prefill", "verify")}
+    row = dict(trace_events=len(events), verify_spans=names.count("verify"), draft_spans=len(drafts),
+               prefill_spans=names.count("prefill"), request_spans=names.count("queued"),
+               span_ms_mean=span_ms, stats=stats,
+               counters=counters, mfu_vs_paper_fsa_array=mfu, mfu_denominator=MFU_DENOMINATOR)
+    emit("spec", telemetry=row)
+    if not (row["verify_spans"] == stats["verify_steps"] and (k + 1) * len(drafts) == stats["draft_steps"]
+            and all(e["args"]["k"] == k and e["ph"] == "X" for e in drafts)
+            and row["prefill_spans"] == stats["prefill_calls"] and row["request_spans"] == len(SERVE_PROMPT_LENS)):
+        raise AssertionError(f"the trace does not match the engine's steps: {row}")
+    if counters != stats:
+        raise AssertionError(f"registry counters {counters} != engine.stats {stats}")
+    return row
+
+
+def spec_greedy(cfg, prompt_lens=SPEC_GREEDY_PROMPT_LENS, policies=("none", "int8-kv-only"),
+                phase: str = "spec") -> dict:
+    """fp32 gate: each speculative run's tokens equal the vanilla engine's
+    under the same policy, or differ first at a near-tie of the reference
+    path (the greedy phase's rule).  Self-draft and the int8 draft under
+    ``none``, self-draft under ``int8-kv-only`` (verify's int8 KV branch);
+    every prefill, target and draft, through the simt forward."""
+    params = init_params(cfg, seed=1, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in prompt_lens]
+    cases = [(flag, draft_quant) for flag in policies
+             for draft_quant in ((None, "int8") if flag == "none" and cfg.moe is None else (None,))]
+    rows, launches = [], 0
+    for flag, draft_quant in cases:
+        pcfg = dataclasses.replace(cfg, quant=parse_quant(flag))
+        vanilla = ServeEngine(pcfg, params, batch_size=2, max_len=512, device="cuda")
+        for i, p in enumerate(prompts):
+            vanilla.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+        ref = {r.rid: r.output for r in vanilla.run()}
+        spec = SpecConfig(lookahead=SPEC_K, draft_quant=draft_quant)
+        engine, done, _, counts, rounds = _spec_run(pcfg, params, prompts, spec, batch_size=2, max_len=512,
+                                                    record=True)
+        expected = 2 * _expected_launches(engine, prompts, pcfg)
+        if counts["flash"] != dict(sm90=0, simt=expected):
+            raise AssertionError(f"fp32 spec prefills launched {counts['flash']}, expected {expected} all simt")
+        launches += expected
+        stats = engine.stats
+        if cfg.moe is not None:
+            # Every verify and draft step routes dropless, one MoE call a
+            # layer; prefills (target and draft) at capacity.
+            moe_expected = dict(capacity=2 * cfg.num_layers * stats["prefill_calls"],
+                                dropless=cfg.num_layers * (stats["verify_steps"] + stats["draft_steps"]))
+            if counts["moe_calls"] != moe_expected:
+                raise AssertionError(f"MoE calls {counts['moe_calls']}, expected {moe_expected}")
+        first, dropped = _first_rejection(rounds, SPEC_K, 512)
+        row = dict(arch=cfg.name, layers=cfg.num_layers, quant=flag,
+                   draft="self" if draft_quant is None else "self@int8", lookahead=SPEC_K,
+                   prompt_lens=list(prompt_lens), acceptance=engine.acceptance_rate(), stats=stats,
+                   rows_dropped_past_capacity=dropped, flash_launches_by_kernel=counts["flash"],
+                   **({"moe_calls": counts["moe_calls"]} if cfg.moe is not None else {}))
+        if draft_quant is None and first is not None:
+            rid, t = first
+            tie = _near_tie(pcfg, params, np.concatenate([prompts[rid], ref[rid][:t]]))
+            row["first_rejected_draft"] = dict(rid=rid, output_index=t, **tie)
+        near_ties = 0
+        for i, p in enumerate(prompts):
+            if done[i].output == ref[i]:
+                continue
+            t = next(j for j, (a, b) in enumerate(zip(done[i].output, ref[i])) if a != b)
+            tie = _near_tie(pcfg, params, np.concatenate([p, ref[i][:t]]))
+            emit(phase, rid=i, quant=flag, draft=row["draft"], first_difference=t, **tie)
+            if not tie["near_tie"]:
+                raise AssertionError(f"request {i}: spec {done[i].output} != vanilla {ref[i]} ({row['draft']}, {flag})")
+            near_ties += 1
+        row.update(near_ties=near_ties, identical=len(prompts) - near_ties)
+        emit(phase, fp32_gate=row)
+        if 505 in prompt_lens and not (dropped > 0 and len(done[prompt_lens.index(505)].output) == 512 - 505 + 1):
+            raise AssertionError(f"the 505-token request did not run into the cache's capacity: {row}")
+        rows.append(row)
+    del params
+    return dict(rows=rows, launches=launches)
+
+
+def spec_moe() -> dict:
+    """qwen3-moe at full width, depth 2, fp32, capacity_factor E / k (the
+    moe phase's greedy configuration), self-draft K = 4 against the vanilla
+    engine: tokens equal but at a logit or router near-tie; verify's and
+    the draft's MoE calls dropless."""
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(
+        full, num_layers=MOE_GREEDY_DEPTH, dtype="float32",
+        moe=dataclasses.replace(full.moe, capacity_factor=full.moe.num_experts / full.moe.top_k))
+    return spec_greedy(cfg, prompt_lens=GREEDY_PROMPT_LENS, policies=("none",))
+
+
 # -- phase 10: the autotuner ------------------------------------------------------------
 
 TUNE_PRESETS = ("paper", "full")
@@ -1545,25 +1795,32 @@ def main() -> None:
     cfg = get_config("olmo-1b")
     params = init_params(cfg, seed=0, device="cuda")
     served = serve(cfg, params)
+    specced = spec_serve(cfg, params, served["outputs"])
     del params
     torch.cuda.empty_cache()
     greedied = greedy(dataclasses.replace(cfg, dtype="float32"))
+    torch.cuda.empty_cache()
+    spec_greedied = spec_greedy(dataclasses.replace(cfg, dtype="float32"))
     torch.cuda.empty_cache()
     trained = train(cfg)
     torch.cuda.empty_cache()
     graded = grads(cfg)
     torch.cuda.empty_cache()
     moed = moe_phase()
+    spec_moed = spec_moe()
+    torch.cuda.empty_cache()
     tuned = tune()
 
     serve_shape = next(r for r in timing if r["shape"] == [1, 2048, 16, 128])
-    fwd_launches = dict(serve=served["launches"], train=trained["launches"]["flash_fwd"],
+    fwd_launches = dict(serve=served["launches"], spec_serve=specced["launches"],
+                        train=trained["launches"]["flash_fwd"],
                         grads_bfloat16=graded["fwd_launches"]["bfloat16"]["sm90"],
                         **{f"moe_serve_{flag}": run["launches"] for flag, run in moed["served"].items()},
                         arctic_prefill=moed["arctic"]["launches"])
     greedy_shape = next(r for r in simt_timing if r["shape"] == [1, 256, 16, 128])
     simt_launches = dict(greedy=greedied["launches"], grads_float32=graded["fwd_launches"]["float32"]["simt"],
-                         moe_greedy=moed["greedy"]["launches"],
+                         moe_greedy=moed["greedy"]["launches"], spec_greedy=spec_greedied["launches"],
+                         spec_moe=spec_moed["launches"],
                          moe_grads_float32=moed["grads"]["fwd_launches"]["float32"]["simt"])
     # The forward's two kernels, both ports of _fwd_kernel: the sm90 one on
     # the bf16 main path (serve, train), the simt one on the fp32 greedy path.

@@ -14,9 +14,23 @@ weights are random, from ``--seed``.
   --quant int8                   int8 projections + int8 KV cache
                                  (repro_torch.quant; greedy outputs stay
                                  token-equal to sequential decode)
+  --spec-draft self|ARCH         speculative decoding (repro_torch.spec):
+                                 'self' drafts with the target itself
+                                 (acceptance 1.0); an arch id drafts with
+                                 that smoke config (random weights from
+                                 --seed + 1)
+  --spec-k N                     lookahead: draft tokens verified per round
+  --spec-quant int8              int8 policy on the draft only
   --check                        verify every greedy output token-for-token
                                  against sequential single-request decode
+  --metrics-out PATH             dump the engine's metrics registry as
+                                 Prometheus text at exit (TTFT/TPOT/queue
+                                 histograms, occupancy and MFU gauges)
+  --trace-out PATH               save a Chrome-trace/Perfetto JSON of the run
   --device                       cuda (default) or cpu
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+      --spec-draft self --spec-quant int8 --check
 """
 
 from __future__ import annotations
@@ -28,6 +42,7 @@ import numpy as np
 
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.models import init_params
+from repro_torch.obs import Tracer, set_tracer
 from repro_torch.quant.config import QUANT_FLAGS
 from repro_torch.serve import (
     Request,
@@ -54,8 +69,18 @@ def main() -> None:
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--spec-draft", default=None,
+                    help="speculative decoding draft: 'self' or an arch id")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="speculative lookahead (draft tokens per round)")
+    ap.add_argument("--spec-quant", default="none", choices=QUANT_FLAGS,
+                    help="int8 policy applied to the draft model only")
     ap.add_argument("--check", action="store_true",
                     help="compare against sequential single-request decode")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write Prometheus text exposition here at exit")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Perfetto-loadable Chrome trace here")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args()
 
@@ -68,9 +93,30 @@ def main() -> None:
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         seed=args.seed,
     )
+
+    spec = draft_params = None
+    if args.spec_draft:
+        from repro_torch.spec import SpecConfig, resolve_draft_config
+
+        spec = SpecConfig(
+            draft_arch=None if args.spec_draft == "self" else args.spec_draft,
+            draft_quant=args.spec_quant if args.spec_quant != "none" else None,
+            lookahead=args.spec_k,
+        )
+        if spec.draft_arch is not None:
+            # Random weights: the draft->verify->rollback path runs in full
+            # (outputs stay lossless; only the acceptance rate suffers).
+            draft_params = init_params(resolve_draft_config(spec, cfg), args.seed + 1, device=args.device)
+
+    tracer = None
+    if args.trace_out:
+        tracer = Tracer(process_name=f"serve {args.arch}")
+        set_tracer(tracer)
+
     engine = ServeEngine(
         cfg, params, batch_size=args.batch, max_len=args.max_len,
-        prefill_chunk=args.chunk, sampling=sampling, device=args.device,
+        prefill_chunk=args.chunk, sampling=sampling, spec=spec,
+        draft_params=draft_params, tracer=tracer, device=args.device,
     )
 
     rng = np.random.default_rng(0)
@@ -91,12 +137,24 @@ def main() -> None:
         f"completed {len(done)}/{args.requests} on {args.device}: {toks} tokens "
         f"in {dt:.2f}s ({toks / dt:.1f} tok/s) | stats {engine.stats}"
     )
+    if spec is not None:
+        print(
+            f"spec: acceptance {engine.acceptance_rate():.3f} | "
+            f"{engine.stats['verify_steps']} verify steps for {toks} tokens "
+            f"({toks / max(engine.stats['verify_steps'], 1):.2f} tok/verify)"
+        )
     ttft, tpot = request_latencies(done)
     print(
         f"latency: ttft p50 {np.percentile(ttft, 50) * 1e3:.1f} ms | "
         f"tpot p50 {np.percentile(tpot, 50) * 1e3:.1f} ms"
         if tpot else f"latency: ttft p50 {np.percentile(ttft, 50) * 1e3:.1f} ms"
     )
+    if args.metrics_out:
+        engine.registry.dump(args.metrics_out)
+        print(f"metrics -> {args.metrics_out}")
+    if tracer is not None:
+        tracer.save(args.trace_out)
+        print(f"trace ({len(tracer.events)} events) -> {args.trace_out}")
 
     if args.check:
         if not sampling.greedy:

@@ -15,9 +15,14 @@ resumes from the latest checkpoint in ``--ckpt-dir``.
   --quant int8       int8 projections (quantization-aware: the backward is
                      straight-through); the flags of repro_torch.quant
   --compress-grads   int8 gradients with error feedback
+  --metrics-out PATH Prometheus text dump at exit (loss/gnorm gauges,
+                     step-latency histogram, MFU against the paper's FSA
+                     array, watchdog heartbeats); also streams one JSON
+                     record per step to PATH.jsonl (launch/scrape_log.py
+                     reads it)
+  --trace-out PATH   Chrome-trace/Perfetto JSON of the per-step spans
 
-Refused until ported: ``--mesh`` (ROADMAP queue 1 item 8), ``--metrics-out``
-and ``--trace-out`` (item 7).
+Refused until ported: ``--mesh`` (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -26,13 +31,12 @@ import argparse
 
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.obs import Tracer, set_tracer
 from repro_torch.quant.config import QUANT_FLAGS
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 _UNPORTED = {
     "mesh": "distribution (ROADMAP queue 1 item 8)",
-    "metrics_out": "telemetry (ROADMAP queue 1 item 7)",
-    "trace_out": "telemetry (ROADMAP queue 1 item 7)",
 }
 
 
@@ -53,8 +57,11 @@ def main() -> None:
     ap.add_argument("--quant", default="none", choices=QUANT_FLAGS)
     ap.add_argument("--compress-grads", action="store_true",
                     help="int8-compressed gradients with error feedback")
-    for flag in ("--mesh", "--metrics-out", "--trace-out"):
-        ap.add_argument(flag, default=None, help="not ported yet")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="Prometheus dump at exit + per-step PATH.jsonl stream")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Perfetto-loadable Chrome trace here")
+    ap.add_argument("--mesh", default=None, help="not ported yet")
     args = ap.parse_args()
     for name, item in _UNPORTED.items():
         if getattr(args, name) is not None:
@@ -73,14 +80,27 @@ def main() -> None:
         num_microbatches=args.microbatches,
         compress_grads=args.compress_grads,
         log_every=max(args.steps // 10, 1),
+        metrics_jsonl=args.metrics_out + ".jsonl" if args.metrics_out else None,
     )
-    trainer = Trainer(cfg, shape, tcfg, token_file=args.token_file, device=args.device)
+    tracer = None
+    if args.trace_out:
+        tracer = Tracer(process_name=f"train {args.arch}")
+        set_tracer(tracer)
+    trainer = Trainer(cfg, shape, tcfg, token_file=args.token_file, tracer=tracer, device=args.device)
     state = trainer.run()
     if state["losses"]:
         print(f"done at step {state['step']} on {args.device}; "
               f"loss {state['losses'][0]:.4f} -> {state['losses'][-1]:.4f}")
+        mfu = trainer.registry.get("mfu").labels(phase="train").value
+        print(f"mfu (train, against the paper's FSA array peak, not the card's): {mfu:.3e}")
     else:
         print(f"nothing to do: {args.ckpt_dir} is at step {state['step']}")
+    if args.metrics_out:
+        trainer.registry.dump(args.metrics_out)
+        print(f"metrics -> {args.metrics_out} (+ {tcfg.metrics_jsonl})")
+    if tracer is not None:
+        tracer.save(args.trace_out)
+        print(f"trace ({len(tracer.events)} events) -> {args.trace_out}")
 
 
 if __name__ == "__main__":

@@ -6,4 +6,6 @@ from .model import (  # noqa: F401
     insert_cache,
     lm_loss,
     prefill_step,
+    rollback_cache,
+    verify_step,
 )

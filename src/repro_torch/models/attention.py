@@ -15,8 +15,9 @@ FSA path: ``decode_attention`` is a grouped matmul and softmax over the
 cache, as in the reference.
 
 The KV cache is updated in place: ``prefill_attention`` writes the chunk's
-rows and ``decode_attention`` scatters one row per slot into the tensors of
-the cache it is given (the reference returns updated copies).  Under a quant
+rows, ``decode_attention`` scatters one row per slot and
+``verify_attention`` (speculative decoding) S rows per slot into the tensors
+of the cache it is given (the reference returns updated copies).  Under a quant
 policy with ``kv_cache`` the cache is a ``QuantKVCache``: K and V are
 quantized on write (one scale per token and kv head), prefill attends over
 the dequantized span in x's dtype and decode over the dequantized cache in
@@ -193,46 +194,75 @@ def decode_attention(
 
     Slot i's new K/V goes to row ``lengths[i]``, so slots at different
     depths share one step.  A slot whose length has reached capacity writes
-    nothing, like the reference's ``mode="drop"`` scatter.
+    nothing, like the reference's ``mode="drop"`` scatter.  It is the
+    verify pass at S = 1 with the write rows at the cached lengths.
     """
-    b = x.shape[0]
+    o, cache = verify_attention(x, params, cfg, cache, positions, cache.lengths)
+    return o, cache._replace(lengths=cache.lengths + 1)
+
+
+def verify_attention(
+    x: torch.Tensor,  # [B, S, d_model]: S teacher-forced tokens per slot
+    params: dict,
+    cfg: ModelConfig,
+    cache: KVCache,  # updated in place
+    positions: torch.Tensor,  # [B, S] (or [B, S, 3]) absolute positions
+    write_pos: torch.Tensor,  # [B] int: first write row per slot
+) -> tuple[torch.Tensor, KVCache]:
+    """Speculative-verify attention: S tokens per slot scored in one pass
+    against the live decode cache.
+
+    Slot i's rows go to ``write_pos[i] + j`` and query j sees keys at
+    positions ``<= write_pos[i] + j``: row j sees exactly the cache a
+    sequential ``decode_attention`` step would have seen.  Under an int8 KV
+    policy the rows are quantized on write (one scale per token and kv
+    head), so accepted rows hold what sequential decode writes for the same
+    K/V.  ``cache.lengths`` is left for the caller's rollback.
+
+    Rows at or past capacity are dropped, like the reference's
+    ``mode="drop"`` scatter, without a host sync: such a row r is sent to
+    row ``r % max_len``, which lies before ``write_pos[i]`` when
+    S <= max_len, and rewrites the value held there.  The indices of a slot
+    stay distinct, so no dropped row can land on a valid write (a clamp to
+    ``max_len - 1`` would put several rows on one index).
+    """
+    b, s_new, _ = x.shape
     hd = cfg.resolved_head_dim
     max_len = cache.k.shape[1]
+    if s_new > max_len:
+        raise ValueError(f"{s_new} verify rows exceed cache capacity {max_len}")
     q, k_new, v_new = _project_qkv(x, params, cfg, positions)
 
-    # Masked scatter without a host sync: full slots rewrite the row they
-    # already hold at max_len - 1.
-    slot = torch.arange(b, device=x.device)
-    full = cache.lengths >= max_len
-    row = cache.lengths.clamp(max=max_len - 1).long()
+    slot = torch.arange(b, device=x.device)[:, None]  # [B, 1]
+    rows = write_pos.to(torch.long)[:, None] + torch.arange(s_new, device=x.device)[None, :]  # [B, S]
+    dropped = rows >= max_len
+    target = torch.where(dropped, rows % max_len, rows)
     if isinstance(cache, QuantKVCache):
-        (kq, ks), (vq, vs) = quantize_kv(k_new[:, 0]), quantize_kv(v_new[:, 0])
+        (kq, ks), (vq, vs) = quantize_kv(k_new), quantize_kv(v_new)
         new_rows = dict(k=kq, v=vq, k_scale=ks, v_scale=vs)
     else:
-        new_rows = dict(k=k_new[:, 0], v=v_new[:, 0])
+        new_rows = dict(k=k_new, v=v_new)
     for name, new in new_rows.items():
         leaf = getattr(cache, name)
-        keep = full.reshape(b, *[1] * (new.dim() - 1))
-        leaf[slot, row] = torch.where(keep, leaf[slot, row], new.to(leaf.dtype))
+        keep = dropped.reshape(b, s_new, *[1] * (new.dim() - 2))
+        leaf[slot, target] = torch.where(keep, leaf[slot, target], new.to(leaf.dtype))
     if isinstance(cache, QuantKVCache):
         k, v = dequantize_kv(cache.k, cache.k_scale), dequantize_kv(cache.v, cache.v_scale)
     else:
         k, v = cache.k.float(), cache.v.float()
 
-    # GQA via a grouped product over [B, 1, Hkv, rep, d]: K/V are never
-    # repeated rep times.
+    # GQA via a grouped product over [B, S, Hkv, rep, d]: K/V are never
+    # repeated rep times.  Query j sees the keys up to its own row.
     rep = cfg.num_heads // cfg.num_kv_heads
-    qg = q.reshape(b, 1, cfg.num_kv_heads, rep, hd).float()
+    qg = q.reshape(b, s_new, cfg.num_kv_heads, rep, hd).float()
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))  # fp32, as the reference
     s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k) * scale
-    # Mask positions beyond each slot's (updated) cache length.
     valid = (
         torch.arange(max_len, device=x.device)[None, None, None, None, :]
-        <= cache.lengths[:, None, None, None, None]
+        <= rows[:, None, None, :, None]
     )
     s = torch.where(valid, s, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhrqk,bkhd->bqhrd", p, v).to(x.dtype)
-    o = o.reshape(b, 1, cfg.num_heads * hd)
-    new_cache = cache._replace(lengths=cache.lengths + 1)
-    return get_quant(cfg).dot(o, params["wo"], "attention"), new_cache
+    o = o.reshape(b, s_new, cfg.num_heads * hd)
+    return get_quant(cfg).dot(o, params["wo"], "attention"), cache

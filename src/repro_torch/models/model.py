@@ -8,8 +8,9 @@ Python loop over layer slices (with ``cfg.remat``, each layer is a
 ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).  The
 caches are stacked the same way (``KVCache`` leaves ``[L, B, ...]``,
 ``lengths [L, B]``; ``QuantKVCache`` leaves under an int8 KV policy) and
-updated in place by prefill and decode.  MoE layers route with capacity in
-``forward``, ``lm_loss`` and prefill, and dropless in ``decode_step``.
+updated in place by prefill, decode and the speculative ``verify_step``.
+MoE layers route with capacity in ``forward``, ``lm_loss`` and prefill, and
+dropless in ``decode_step`` and ``verify_step``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from .attention import (
     decode_attention,
     init_kv_cache,
     prefill_attention,
+    verify_attention,
 )
 from .layers import apply_norm, embed_init, mlp_forward, mlp_params, norm_params
 from .moe import moe_forward, moe_params
@@ -303,3 +305,66 @@ def insert_cache(cache, prefix, slot: int):
         else:
             getattr(cache, name)[:, slot:slot + 1, :seq] = getattr(prefix, name)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# speculative verify (K+1 teacher-forced tokens against the live cache)
+# ---------------------------------------------------------------------------
+
+
+def verify_step(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, S] int: [last sampled token, K draft tokens]
+    cache: KVCache,  # the live decode cache; updated in place
+    positions: torch.Tensor,  # [B] int: per-slot first write position
+) -> tuple[torch.Tensor, KVCache]:
+    """Score S teacher-forced tokens per slot in one batched forward ->
+    (logits [B, S, V], cache).
+
+    Slot i's tokens sit at positions ``positions[i] + [0, S)``; their K/V
+    go into the live cache at those rows, and each token attends exactly the
+    prefix a sequential ``decode_step`` would have seen, so
+    ``argmax(logits[:, j])`` is vanilla greedy's token after
+    ``tokens[:, :j+1]``.  ``cache.lengths`` is not advanced: the caller
+    keeps the accepted prefix with ``rollback_cache``.
+    """
+    if cfg.family not in _FAMILIES:
+        raise ValueError(
+            f"verify_step requires a KV cache to roll back; family "
+            f"{cfg.family!r} has none"
+        )
+    x = params["embed"][tokens]
+    b, s = tokens.shape
+    write_pos = torch.as_tensor(positions, dtype=torch.int32, device=x.device).reshape(b)
+    pos = write_pos[:, None] + torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+    if cfg.mrope_sections is not None:
+        pos = pos[..., None].expand(b, s, 3)
+    for i, layer in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        hn = apply_norm(x, layer["attn_norm"], cfg.norm_type)
+        a, _ = verify_attention(hn, layer["attn"], cfg, _kv(cache, i), pos, write_pos)
+        # Dropless, as decode_step: verify row j must equal the decode step
+        # it replaces whatever its lane-mates route to.
+        x = _mlp(x + a, layer, cfg, dropless=True)
+    # No logit softcap, as decode_step: tanh is monotonic, so the greedy
+    # argmax is unchanged.
+    return _logits(x, params, cfg, softcap=False), cache
+
+
+def rollback_cache(cache, new_lengths):
+    """Truncate every slot's cached length to ``new_lengths`` [B].
+
+    Rejected rows stay in the buffers but are never read (attention masks
+    keys past ``lengths``) and are overwritten by the next writes.  Works for
+    ``KVCache`` and ``QuantKVCache``; recurrent state has no such rollback.
+    The new ``lengths`` [L, B] is its own contiguous tensor, since
+    ``insert_cache`` writes it in place, slot by slot.
+    """
+    if not isinstance(cache, (KVCache, QuantKVCache)):
+        raise ValueError(
+            "rollback_cache requires a KVCache/QuantKVCache (attention "
+            "families); recurrent state has no length-truncation rollback"
+        )
+    n_layers, b = cache.lengths.shape
+    new = torch.as_tensor(new_lengths, dtype=torch.int32, device=cache.lengths.device).reshape(b)
+    return cache._replace(lengths=new[None, :].expand(n_layers, b).clone())

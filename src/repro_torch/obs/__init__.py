@@ -1,5 +1,20 @@
-"""``repro_torch.obs`` — the metrics registry of ``repro.obs``.  Tracing and
-MFU accounting come with ROADMAP queue 1 item 7."""
+"""``repro_torch.obs`` — telemetry: metrics registry, tracing, MFU accounting
+(counterpart of ``repro.obs``).
+
+  * :mod:`repro_torch.obs.metrics` — labeled Counter/Gauge/Histogram
+    registry with Prometheus-text and JSON exposition and a global off
+    switch.
+  * :mod:`repro_torch.obs.trace` — Chrome-trace/Perfetto span + event
+    tracer with a ``torch.profiler.record_function`` pass-through;
+    ``NullTracer`` is the free disabled twin.
+  * :mod:`repro_torch.obs.mfu` — model-FLOPs-utilization accounting against
+    the paper's FSA array peak (not the card's).
+
+The serve engine, the trainer and the fault layer report through this
+package; ``launch/serve.py`` and ``launch/train.py`` take ``--metrics-out``
+and ``--trace-out``.  The reference's XLA compile watcher has no
+counterpart: the port compiles no executables (ROADMAP queue 1 item 2).
+"""
 
 from .metrics import (  # noqa: F401
     DEFAULT_BUCKETS,
@@ -11,3 +26,14 @@ from .metrics import (  # noqa: F401
     enabled,
     set_enabled,
 )
+from .mfu import (  # noqa: F401
+    PAPER_ARRAY,
+    ArrayConfig,
+    MFUMeter,
+    decode_flops,
+    paper_ideal_flops_per_s,
+    prefill_flops,
+    train_step_flops,
+    verify_flops,
+)
+from .trace import NullTracer, Tracer, get_tracer, set_tracer  # noqa: F401

@@ -4,16 +4,21 @@ watchdog, async checkpointing and deterministic data (counterpart of
 
 Each step lands in the trainer's metrics registry
 (``train_steps_total``/``train_tokens_total`` counters,
-``train_step_seconds`` histogram, loss/grad-norm/tokens-per-s gauges).
-With ``compress_grads`` the gradients go through int8 with error feedback
-and the residual is part of the state and of the checkpoint.  Not yet
-ported: the mesh, the reference's per-step MFU gauge, its spans and its
-JSONL metrics stream (ROADMAP queue 1 items 7 and 8).
+``train_step_seconds`` histogram, loss/grad-norm/tokens-per-s gauges, the
+per-step MFU against the paper's FSA array) and, when
+``TrainerConfig.metrics_jsonl`` is set, as one JSON record per step (the
+reference's keys; ``launch/scrape_log.py`` reads them back).  Each step is a
+``train_step`` span on the ambient tracer.  With ``compress_grads`` the
+gradients go through int8 with error feedback and the residual is part of
+the state and of the checkpoint.  Not yet ported: the mesh (ROADMAP queue 1
+item 8).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
 from typing import Callable, Optional
 
 import torch
@@ -23,7 +28,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data import DataConfig, make_source
 from repro_torch.dist.fault import PreemptionHandler, StepWatchdog
 from repro_torch.models import init_params
-from repro_torch.obs import Registry
+from repro_torch.obs import MFUMeter, Registry, get_tracer
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.grad_compress import init_residual
 from repro_torch.optim.schedules import cosine_with_warmup
@@ -46,6 +51,8 @@ class TrainerConfig:
     # int8-compressed gradients with error feedback
     # (repro_torch.optim.grad_compress); adds a residual to the state.
     compress_grads: bool = False
+    # One JSON object per step appended to this path (None: no stream).
+    metrics_jsonl: Optional[str] = None
 
 
 class Trainer:
@@ -58,6 +65,7 @@ class Trainer:
         token_file: Optional[str] = None,
         hooks: Optional[dict[str, Callable]] = None,
         registry: Optional[Registry] = None,
+        tracer=None,  # repro_torch.obs Tracer (default: ambient, usually Null)
         device="cuda",
     ):
         self.cfg, self.shape, self.tcfg = cfg, shape, tcfg
@@ -65,6 +73,8 @@ class Trainer:
         self.data = make_source(cfg, shape, DataConfig(seed=tcfg.seed), token_file)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
         self.registry = registry if registry is not None else Registry()
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.mfu = MFUMeter(cfg, self.registry)
         self.watchdog = StepWatchdog(timeout_factor=tcfg.watchdog_factor, registry=self.registry)
         self.preempt = PreemptionHandler(install=False, registry=self.registry)
         self.hooks = hooks or {}
@@ -109,38 +119,54 @@ class Trainer:
         ckpt_keys = ("params", "opt") + (("residual",) if self.tcfg.compress_grads else ())
         losses = []
         tokens_per_batch = self.shape.global_batch * self.shape.seq_len
-        while state["step"] < self.tcfg.total_steps:
-            if self.preempt.requested:
-                self.ckpt.save(state["step"], {k: state[k] for k in ckpt_keys})
-                break
-            step = state["step"]
-            batch = {k: torch.as_tensor(v, device=self.device) for k, v in self.data.batch(step).items()}
-            self.watchdog.start_step()
-            if self.tcfg.compress_grads:
-                params, opt, residual, metrics = self.step_fn(
-                    state["params"], state["opt"], batch, state["residual"]
-                )
-                new_state = {"params": params, "opt": opt, "residual": residual, "step": step + 1}
-            else:
-                params, opt, metrics = self.step_fn(state["params"], state["opt"], batch)
-                new_state = {"params": params, "opt": opt, "step": step + 1}
-            loss = metrics["loss"].item()  # waits for the step, as block_until_ready
-            dur = self.watchdog.end_step()
-            state = new_state
-            gnorm = metrics["grad_norm"].item()
-            losses.append(loss)
-            self._steps_total.inc()
-            self._tokens_total.inc(tokens_per_batch)
-            self._h_step.observe(dur)
-            self._g_loss.set(loss)
-            self._g_gnorm.set(gnorm)
-            self._g_tok_s.set(tokens_per_batch / dur)
-            if "on_step" in self.hooks:
-                self.hooks["on_step"](state, metrics)
-            if (step + 1) % self.tcfg.log_every == 0:
-                print(f"step {step + 1} loss {loss:.4f} gnorm {gnorm:.3f} {dur * 1e3:.0f} ms")
-            if (step + 1) % self.tcfg.ckpt_every == 0:
-                self.ckpt.save_async(step + 1, {k: state[k] for k in ckpt_keys})
+        jsonl_path = self.tcfg.metrics_jsonl
+        with open(jsonl_path, "a") if jsonl_path else contextlib.nullcontext() as jsonl:
+            while state["step"] < self.tcfg.total_steps:
+                if self.preempt.requested:
+                    self.ckpt.save(state["step"], {k: state[k] for k in ckpt_keys})
+                    break
+                step = state["step"]
+                batch = {k: torch.as_tensor(v, device=self.device) for k, v in self.data.batch(step).items()}
+                self.watchdog.start_step()
+                with self.tracer.span("train_step", cat="train", tid=0, args={"step": step}):
+                    if self.tcfg.compress_grads:
+                        params, opt, residual, metrics = self.step_fn(
+                            state["params"], state["opt"], batch, state["residual"]
+                        )
+                        new_state = {"params": params, "opt": opt, "residual": residual, "step": step + 1}
+                    else:
+                        params, opt, metrics = self.step_fn(state["params"], state["opt"], batch)
+                        new_state = {"params": params, "opt": opt, "step": step + 1}
+                    loss = metrics["loss"].item()  # waits for the step, as block_until_ready
+                dur = self.watchdog.end_step()
+                state = new_state
+                gnorm = metrics["grad_norm"].item()
+                losses.append(loss)
+                self._steps_total.inc()
+                self._tokens_total.inc(tokens_per_batch)
+                self._h_step.observe(dur)
+                self._g_loss.set(loss)
+                self._g_gnorm.set(gnorm)
+                self._g_tok_s.set(tokens_per_batch / dur)
+                mfu_rec = self.mfu.train_step(self.shape.global_batch, self.shape.seq_len, dur)
+                if jsonl is not None:
+                    jsonl.write(json.dumps({
+                        "event": "train_step",
+                        "step": step + 1,
+                        "loss": loss,
+                        "grad_norm": gnorm,
+                        "step_s": dur,
+                        "tokens_per_s": tokens_per_batch / dur,
+                        "mfu": mfu_rec["mfu"],
+                        "model_flops_per_s": mfu_rec["flops_per_s"],
+                    }) + "\n")
+                    jsonl.flush()
+                if "on_step" in self.hooks:
+                    self.hooks["on_step"](state, metrics)
+                if (step + 1) % self.tcfg.log_every == 0:
+                    print(f"step {step + 1} loss {loss:.4f} gnorm {gnorm:.3f} {dur * 1e3:.0f} ms")
+                if (step + 1) % self.tcfg.ckpt_every == 0:
+                    self.ckpt.save_async(step + 1, {k: state[k] for k in ckpt_keys})
         self.ckpt.wait()
         state["losses"] = losses
         return state

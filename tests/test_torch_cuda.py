@@ -219,6 +219,30 @@ def test_engine_bf16_prefill_takes_only_the_sm90_kernel(cuda_device):
         sm90=before["sm90"] + cfg.num_layers * len(prompts), simt=before["simt"])
 
 
+@pytest.mark.parametrize("draft_quant", [None, "int8"])
+def test_spec_engine_on_card(cuda_device, draft_quant):
+    """Speculative serving on the card (fp32 smoke model, K = 4; the last
+    prompt runs into the 64-slot cache): the vanilla engine's tokens, and
+    twice its prefill launches (the draft mirrors every prefill)."""
+    from repro_torch.spec import SpecConfig
+
+    cfg = get_smoke_config("olmo-1b")
+    params = init_params(cfg, 0, device=cuda_device)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 19, 40, 58)]
+    outputs, launches = [], []
+    for spec in (None, SpecConfig(lookahead=4, draft_quant=draft_quant)):
+        engine = ServeEngine(cfg, params, batch_size=2, max_len=64, spec=spec, device=cuda_device)
+        for i, p in enumerate(prompts):
+            engine.submit(Request(rid=i, prompt=p, max_new_tokens=8))
+        before = flash_kernel.launch_count
+        outputs.append({r.rid: r.output for r in engine.run()})
+        launches.append(flash_kernel.launch_count - before)
+    assert outputs[0] == outputs[1]
+    assert launches[1] == 2 * launches[0] == 2 * cfg.num_layers * len(prompts)
+    assert engine.stats["verify_steps"] > 0 and engine.stats["decode_steps"] == 0
+
+
 def _counts():
     return (flash_kernel.launch_count, kernel_bwd.dq_launch_count, kernel_bwd.dkv_launch_count)
 
