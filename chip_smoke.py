@@ -11,8 +11,8 @@ non-zero):
                backward pairs, PWL exp2) from the sources in this checkout
                (sm_90a), one process per source, all started together;
                ptxas's registers and spills of each tensor-core
-               instantiation (the forward may not spill at d = 128, the
-               backward pair not at all), of each SIMT forward
+               instantiation (none may spill; the forward's d = 64 spills,
+               on zamba2's main path, are printed on their own), of each SIMT forward
                instantiation (flash_fwd_kernel<T, D, BQ>) and of each SIMT
                backward instantiation (flash_bwd_dq_kernel and
                flash_bwd_dkv_kernel<T, D, R>: per dtype, d and resident
@@ -24,15 +24,17 @@ non-zero):
                16- and 32-row q tiles), q_offset > 0, exact/PWL exp2 with K 8
                and 4, LSE, a strided KV cache, B up to 4, and the main
                path's training, chunked-prefill, fp32 greedy-prefill and
-               fp32 gradient-check shapes, and GQA rep 16, qwen3-moe's 64
-               q heads over 4 kv heads, in bf16 and fp32); the kernel that
+               fp32 gradient-check shapes, GQA rep 16, qwen3-moe's 64
+               q heads over 4 kv heads, in bf16 and fp32, and zamba2's 32
+               heads of 64 at its training and gradient-check shapes); the kernel that
                takes each case (kernel.KERNELS: "sm90" for bf16 at d 64 and
                128, "simt" otherwise) is held against the plain version that
                rounds P as it does, and the sm90 kernel also against the
                fp32-P plain version within the bound of P's rounding
                (TOL_FP32P, element by element).  Then the sm90
                kernel is timed at the serving and training shapes and at
-               qwen3-moe's 2048-token prefill (rep 16), and the
+               qwen3-moe's 2048-token prefill (rep 16) and zamba2's
+               training shape ([4, 2048, 32, 64], d 64 at olmo's work), and the
                simt kernel at the fp32 greedy phase's two prefill buckets,
                the largest fp32 serving bucket and the gradient check's
                forward (with LSE), in event and device time, beside the
@@ -56,8 +58,10 @@ non-zero):
                also against the fp32-P plain version within the bound of
                that rounding (TOL_BWD_FP32P beside
                kernel_bwd.departure_bound, element by element).  Then the
-               sm90 pair is timed at the training shape and at rep 16
-               ([1, 2048, 64/4, 128]: dK/dV gets 4 kv heads' CTAs), the
+               sm90 pair is timed at the training shape, at rep 16
+               ([1, 2048, 64/4, 128]: dK/dV gets 4 kv heads' CTAs) and at
+               zamba2's training shape ([4, 2048, 32, 64], the same work at
+               d 64; a line sets d 64 beside d 128), the
                simt pair
                at [1, 256], [2, 1024] (the fp32 gradient check's shape) and
                [1, 2048], fp32 causal, 16 heads of 128: each kernel alone
@@ -141,6 +145,31 @@ non-zero):
                prefill logits against the naive path, then 4 decode steps
                (the dense residual).  Each model is freed before the next.
 
+ 13. recurrent — (runs after spec, before tune) the recurrent families at
+               full width and depth with seeded random weights.  zamba2-1.2b
+               (38 Mamba2 layers, one shared attention block of 32 heads of
+               64 applied 7 times), bf16: served by ServeEngine(batch_size=2,
+               max_len=256) with 4 requests of 16, 40, 100 and 200 tokens, 8
+               new tokens each (tokens/s, TTFT, prefill, TPOT, peak memory;
+               the prefill teacher-forces each bucket through decode_step, so
+               no flash launch: gated at 0); forward on 1 x 2048: 7 sm90
+               launches, each application's attention output within
+               TOL_PREFILL_REL of the naive path's on the same input, the
+               fp32 model's logits within TOL_GRADS of the naive path's
+               (the bf16 model's reported: 38 bf16 layers carry a one-step
+               difference on to them);
+               trained as the train phase (4 x 2048, 6 steps, remat, AdamW):
+               84 sm90 forward launches, 42 dQ and 42 dK/dV, a finite loss
+               that falls; in fp32 at depth 7 (applications at layers 0 and
+               6): greedy tokens equal to sequential decode (or a near-tie),
+               decode logits within 5e-3 of forward's, gradients at 1 x 512
+               within TOL_GRADS of the naive path (the simt forward and pair
+               at d 64, 4 and 2 + 2 launches).  xlstm-125m (6 (mLSTM, sLSTM)
+               pairs), bf16: served the same way (0 flash launches), trained
+               6 steps of 2 x 256 (a finite, falling loss); in fp32 at full
+               depth the greedy and decode-vs-forward gates.  The phase
+               prints its seconds.
+
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
 
@@ -185,7 +214,7 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.attention import attention_forward  # noqa: E402
 from repro_torch.models.layers import apply_norm  # noqa: E402
 from repro_torch.obs import Tracer  # noqa: E402
-from repro_torch.models.model import decode_step, init_cache, init_params, prefill_step  # noqa: E402
+from repro_torch.models.model import _hybrid_layer, decode_step, forward, init_cache, init_params, prefill_step  # noqa: E402,E501
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.quant import QUANT_FLAGS, int8_dot, int8_dot_batched, parse_quant, quantize  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -364,6 +393,12 @@ SWEEP = [
     # in bf16 and the simt kernel in fp32.
     (1, 512, 512, 64, 4, 128, True, 0, torch.bfloat16, "exact", 8, True, None),
     (1, 256, 256, 64, 4, 128, True, 0, torch.float32, "exact", 8, True, None),
+    # zamba2's shared attention, 32 heads of 64 (rep 1): its training shape
+    # with LSE (sm90), a d-64 case off the tile with a q_offset, and the
+    # fp32 gradient check's forward (simt).
+    (4, 2048, 2048, 32, 32, 64, True, 0, torch.bfloat16, "exact", 8, True, None),
+    (1, 300, 812, 32, 32, 64, True, 512, torch.bfloat16, "exact", 8, True, None),
+    (1, 512, 512, 32, 32, 64, True, 0, torch.float32, "exact", 8, True, None),
 ]
 
 
@@ -523,14 +558,16 @@ def _time_forward(b, s, h, d, dtype, lse, plain_iters, gen, peak_flops, hkv=None
 
 def time_flash() -> list[dict]:
     """The sm90 kernel at the serving prefill (B = 1, no LSE) and training
-    (B = 4, LSE for the backward) shapes of olmo-1b, and at qwen3-moe's
+    (B = 4, LSE for the backward) shapes of olmo-1b, at qwen3-moe's
     2048-token prefill (64 q heads over 4 kv heads: GQA rep 16, the same
-    work as the training shape); the plain version is slow, so the large
-    shapes take 3 timings."""
+    work as the training shape) and at zamba2's training shape (32 heads of
+    64: the same work again, at d 64); the plain version is slow, so the
+    large shapes take 3 timings."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    return [_time_forward(b, s, h, 128, torch.bfloat16, lse, iters, gen, PEAK_BF16_FLOPS, hkv)
-            for b, s, h, hkv, lse, iters in ((1, 512, 16, 16, False, 20), (1, 2048, 16, 16, False, 20),
-                                             (4, 2048, 16, 16, True, 3), (1, 2048, 64, 4, False, 3))]
+    return [_time_forward(b, s, h, d, torch.bfloat16, lse, iters, gen, PEAK_BF16_FLOPS, hkv)
+            for b, s, h, hkv, d, lse, iters in ((1, 512, 16, 16, 128, False, 20), (1, 2048, 16, 16, 128, False, 20),
+                                                (4, 2048, 16, 16, 128, True, 3), (1, 2048, 64, 4, 128, False, 3),
+                                                (4, 2048, 32, 32, 64, True, 3))]
 
 
 # The simt kernel's timed shapes, (B, S, LSE, plain version's timings): the
@@ -593,6 +630,7 @@ TOL_BWD_FP32P = (1e-3, 2.0 ** -7)  # (atol, rtol) beside departure_bound
 TOL_BWD_FLIPS = 2.0  # times departure_bound, beside TOL_BWD[torch.bfloat16]
 
 # (B, Sq, Sk, H, Hkv, d, causal, q_offset, dtype, exp2 of the forward)
+ZAMBA2_TRAIN_ATTENTION = (4, 2048, 2048, 32, 32, 64, True, 0, torch.bfloat16, "exact")
 BWD_SWEEP = [
     (1, 128, 128, 1, 1, 64, False, 0, torch.float32, "exact"),
     (2, 256, 256, 4, 2, 64, True, 0, torch.float32, "exact"),
@@ -629,6 +667,11 @@ BWD_SWEEP = [
     # pair in bf16 and the simt pair in fp32.
     (1, 512, 512, 64, 4, 128, True, 0, torch.bfloat16, "exact"),
     (1, 256, 256, 64, 4, 128, True, 0, torch.float32, "exact"),
+    # zamba2's shared attention (32 heads of 64, rep 1): its training shape
+    # and a case off the tiles (sm90), the fp32 gradient check's (simt).
+    ZAMBA2_TRAIN_ATTENTION,
+    (1, 300, 812, 32, 32, 64, True, 512, torch.bfloat16, "exact"),
+    (1, 512, 512, 32, 32, 64, True, 0, torch.float32, "exact"),
 ]
 
 
@@ -830,16 +873,17 @@ def time_simt_bwd_tiles() -> list[dict]:
 
 
 def time_bwd() -> dict:
-    """The sm90 pair at the training shape (bf16, the last sm90 sweep case;
-    the plain version is slow, so 3 timings) and the simt pair at its timed
-    shapes and tiles."""
+    """The sm90 pair at olmo's training shape (bf16; the plain version is
+    slow, so 3 timings), at rep 16 and at zamba2's training shape (d 64,
+    the same work), and the simt pair at its timed shapes and tiles."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    training = next(c for c in BWD_SWEEP if c[0] == 4 and c[1] == 2048)
+    training = next(c for c in BWD_SWEEP if c[0] == 4 and c[1] == 2048 and c[5] == 128)
     # qwen3-moe's rep 16 at the same work: 4 kv heads give dK/dV a quarter
     # of the training shape's CTAs.
     rep16 = (1, 2048, 2048, 64, 4, 128, True, 0, torch.bfloat16, "exact")
     return dict(sm90=_time_bwd_shape(training, PEAK_BF16_FLOPS, 3, gen),
                 sm90_rep16=_time_bwd_shape(rep16, PEAK_BF16_FLOPS, 3, gen),
+                sm90_d64=_time_bwd_shape(ZAMBA2_TRAIN_ATTENTION, PEAK_BF16_FLOPS, 3, gen),
                 simt=time_simt_bwd(), simt_tiles=time_simt_bwd_tiles())
 
 
@@ -943,7 +987,19 @@ SERVE_PROMPT_LENS = (64, 1536, 200, 700, 96, 1100, 400, 1400)
 MAX_NEW = 16
 
 
+def _attn_layers(cfg) -> int:
+    """Flash calls of one forward: one a layer of a transformer, one an
+    application of zamba2's shared block, none in xlstm."""
+    if cfg.family == "hybrid":
+        return -(-cfg.num_layers // max(cfg.attn_every, 1))
+    return 0 if cfg.family == "ssm" else cfg.num_layers
+
+
 def _expected_launches(engine: ServeEngine, prompts, cfg) -> int:
+    """Forward launches of the engine's prefills: one a layer a chunk.  The
+    recurrent families prefill through decode_step: none."""
+    if cfg.family in ("hybrid", "ssm"):
+        return 0
     total = 0
     for p in prompts:
         bucket = engine.bucket_for(len(p))
@@ -1121,13 +1177,14 @@ def _near_tie(cfg, params, context) -> dict:
     return dict(row, near_tie=gap <= NEAR_TIE or margin <= ROUTER_NEAR_TIE)
 
 
-def greedy(cfg, phase: str = "greedy") -> dict:
+def greedy(cfg, phase: str = "greedy", prompt_lens=GREEDY_PROMPT_LENS, max_new=MAX_NEW,
+           max_len=512) -> dict:
     params = init_params(cfg, seed=1, device="cuda")
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in GREEDY_PROMPT_LENS]
-    engine = ServeEngine(cfg, params, batch_size=2, max_len=512, device="cuda")
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in prompt_lens]
+    engine = ServeEngine(cfg, params, batch_size=2, max_len=max_len, device="cuda")
     for i, p in enumerate(prompts):
-        engine.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+        engine.submit(Request(rid=i, prompt=p, max_new_tokens=max_new))
     torch.cuda.synchronize()
     reset_path_counts()
     done = {r.rid: r.output for r in engine.run()}
@@ -1140,7 +1197,7 @@ def greedy(cfg, phase: str = "greedy") -> dict:
     near_ties = 0
     with torch.no_grad():
         for i, p in enumerate(prompts):
-            ref = sequential_greedy_decode(cfg, params, p, MAX_NEW, max_len=512)
+            ref = sequential_greedy_decode(cfg, params, p, max_new, max_len=max_len)
             if done[i] == ref:
                 continue
             t = next(j for j, (a, b) in enumerate(zip(done[i], ref)) if a != b)
@@ -1149,7 +1206,7 @@ def greedy(cfg, phase: str = "greedy") -> dict:
             if not tie["near_tie"]:
                 raise AssertionError(f"request {i}: engine {done[i]} != sequential {ref}")
             near_ties += 1
-    emit(phase, arch=cfg.name, layers=cfg.num_layers, requests=len(prompts), tokens_each=MAX_NEW,
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, requests=len(prompts), tokens_each=max_new,
          near_ties=near_ties, identical=len(prompts) - near_ties, flash_launches_by_kernel=by_kernel,
          **(engine_counts if cfg.moe is not None else {}))
     return dict(near_ties=near_ties, launches=by_kernel["simt"])
@@ -1167,15 +1224,17 @@ TRAIN_STEPS = 6
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
 
 
-def train(cfg) -> dict:
-    """The port's Trainer on full-width olmo-1b; launch counts of the run,
-    and its JSONL metrics stream read back through scrape_log."""
+def train(cfg, shape=TRAIN_SHAPE, phase: str = "train") -> dict:
+    """The port's Trainer on a full-width model (olmo-1b in the train
+    phase); launch counts of the run (forward, with the remat recompute,
+    and each backward kernel, per flash call of the model), and its JSONL
+    metrics stream read back through scrape_log."""
     with tempfile.TemporaryDirectory() as ckpt_dir:
         jsonl = Path(ckpt_dir) / "metrics.jsonl"
         tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1, ckpt_dir=ckpt_dir,
                              peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, log_every=1, seed=0,
                              metrics_jsonl=str(jsonl))
-        trainer = Trainer(cfg, TRAIN_SHAPE, tcfg, device="cuda")
+        trainer = Trainer(cfg, shape, tcfg, device="cuda")
         state = trainer.init_state()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1189,17 +1248,17 @@ def train(cfg) -> dict:
         records = scrape_log.scrape(jsonl.read_text())
     losses = state["losses"]
     steps = list(trainer.watchdog.durations)
-    tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
+    tokens = shape.global_batch * shape.seq_len
     step_s = float(np.median(steps[1:]))  # the first step also warms up
-    expected = dict(flash_fwd=cfg.num_layers * 2 * TRAIN_STEPS, flash_fwd_simt=0,
-                    flash_bwd_sm90_dq=cfg.num_layers * TRAIN_STEPS,
-                    flash_bwd_sm90_dkv=cfg.num_layers * TRAIN_STEPS, flash_bwd_dq=0, flash_bwd_dkv=0)
-    emit("train", arch=cfg.name, dtype=cfg.dtype, remat=cfg.remat, batch=TRAIN_SHAPE.global_batch,
-         seq=TRAIN_SHAPE.seq_len, losses=losses, step_seconds=steps, step_s_median=step_s,
+    calls = _attn_layers(cfg) * TRAIN_STEPS
+    expected = dict(flash_fwd=calls * (2 if cfg.remat else 1), flash_fwd_simt=0,
+                    flash_bwd_sm90_dq=calls, flash_bwd_sm90_dkv=calls, flash_bwd_dq=0, flash_bwd_dkv=0)
+    emit(phase, arch=cfg.name, dtype=cfg.dtype, remat=cfg.remat, batch=shape.global_batch,
+         seq=shape.seq_len, losses=losses, step_seconds=steps, step_s_median=step_s,
          tokens_per_s=tokens / step_s, max_memory_allocated_gb=peak_gb,
          launches=launches, expected_launches=expected)
     mfu = trainer.registry.get("mfu").labels(phase="train").value
-    emit("train", metrics_jsonl_records=len(records), metrics_jsonl_losses=[r["loss"] for r in records],
+    emit(phase, metrics_jsonl_records=len(records), metrics_jsonl_losses=[r["loss"] for r in records],
          mfu_vs_paper_fsa_array=mfu, mfu_denominator=MFU_DENOMINATOR)
     if len(records) != TRAIN_STEPS or not all(math.isfinite(r["loss"]) for r in records):
         raise AssertionError(f"scrape_log read {len(records)} records of the metrics stream: {records}")
@@ -1209,7 +1268,8 @@ def train(cfg) -> dict:
         raise AssertionError(f"losses not finite at every step: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    return dict(launches=launches, step_s=step_s, tokens_per_s=tokens / step_s, losses=losses)
+    return dict(launches=launches, step_s=step_s, tokens_per_s=tokens / step_s, losses=losses,
+                max_memory_allocated_gb=peak_gb)
 
 
 # -- phase 9: gradients, kernel path vs naive path ---------------------------------
@@ -1229,8 +1289,9 @@ def grads(cfg, tols=TOL_GRADS, depth=GRADS_DEPTH, batch=GRADS_BATCH, seq=GRADS_S
           phase: str = "grads") -> dict:
     """Largest relative gradient error by dtype, and the forward and
     backward launches of each kernel path (fp32: the simt forward and pair;
-    bf16: the sm90 forward and pair; the forward once per layer, twice with
-    remat, and one launch of each backward kernel per layer)."""
+    bf16: the sm90 forward and pair; the forward once per flash call of the
+    model (a layer; an application of zamba2's shared block), twice with
+    remat, and one launch of each backward kernel per call)."""
     worst, launches, fwd_launches = {}, {}, {}
     for dtype, tol in tols.items():
         small = dataclasses.replace(cfg, num_layers=depth, dtype=dtype)
@@ -1247,11 +1308,12 @@ def grads(cfg, tols=TOL_GRADS, depth=GRADS_DEPTH, batch=GRADS_BATCH, seq=GRADS_S
         launches[dtype] = dict(flash_bwd.launch_counts)
         fwd_launches[dtype] = dict(flash.launch_counts)
         pair = flash_bwd.bwd_kernel_for(small.activation_dtype, small.resolved_head_dim)
-        expected = {e: depth * (e in pair.entries) for e in flash_bwd.launch_counts}
+        calls = _attn_layers(small)
+        expected = {e: calls * (e in pair.entries) for e in flash_bwd.launch_counts}
         if launches[dtype] != expected:
             raise AssertionError(f"{dtype} gradients launched {launches[dtype]}, expected {expected}")
         fwd = flash.kernel_for(small.activation_dtype, small.resolved_head_dim).name
-        fwd_expected = {name: depth * (2 if small.remat else 1) * (name == fwd) for name in flash.launch_counts}
+        fwd_expected = {name: calls * (2 if small.remat else 1) * (name == fwd) for name in flash.launch_counts}
         if fwd_launches[dtype] != fwd_expected:
             raise AssertionError(f"{dtype} forward launched {fwd_launches[dtype]}, expected {fwd_expected}")
         extra = _path_counts() if small.moe is not None else {}
@@ -1614,6 +1676,190 @@ def spec_moe() -> dict:
     return spec_greedy(cfg, prompt_lens=GREEDY_PROMPT_LENS, policies=("none",))
 
 
+# -- phase 13: the recurrent families -----------------------------------------------------
+
+# zamba2-1.2b (38 Mamba2 layers, d_model 2048, one shared attention block of
+# 32 heads of 64 before layers 0, 6, ..., 36: 7 flash calls a forward) and
+# xlstm-125m (6 (mLSTM, sLSTM) pairs, d_model 768, no attention), both at
+# full width and depth.  Serving: 4 requests through a 2-slot engine whose
+# buckets (16, 64, 128, 256) each prefill one decode step a token.
+RECURRENT_ARCHS = ("zamba2-1.2b", "xlstm-125m")
+RECURRENT_PROMPT_LENS = (16, 40, 100, 200)
+RECURRENT_MAX_NEW = 8
+RECURRENT_ENGINE = dict(batch_size=2, max_len=256)
+# The fp32 gates: zamba2 at depth 7 (two shared applications, at layers 0
+# and 6), xlstm at full depth; its gradients at depth 7 on 1 x 512 (the
+# simt pair at d 64).
+ZAMBA2_FP32_DEPTH = 7
+ZAMBA2_GRADS = dict(depth=ZAMBA2_FP32_DEPTH, batch=1, seq=512)
+# xlstm trains at 2 x 256: both blocks are per-token Python loops under
+# autograd and each step keeps a [B, 4, 192, 192] fp32 matrix memory.
+XLSTM_TRAIN_SHAPE = ShapeConfig("chip_smoke_xlstm", 256, 2, "train")
+# Decode logits against forward logits over the longest request: the
+# reference's own bound (tests/test_models.py, test_zamba2_decode_matches_forward).
+DECODE_VS_FORWARD_ATOL = 5e-3
+
+
+def _recurrent_prompts(cfg, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in RECURRENT_PROMPT_LENS]
+
+
+def recurrent_serve(cfg, params) -> dict:
+    """The 4 requests through ServeEngine: tokens/s, TTFT, prefill, TPOT,
+    peak memory; no flash launch (the scan prefill and decode attend by the
+    grouped product)."""
+    prompts = _recurrent_prompts(cfg, 0)
+    warm = ServeEngine(cfg, params, device="cuda", **RECURRENT_ENGINE)
+    warm.submit(Request(rid=-1, prompt=prompts[0], max_new_tokens=2))
+    warm.run()
+    del warm
+    engine = ServeEngine(cfg, params, device="cuda", **RECURRENT_ENGINE)
+    for i, p in enumerate(prompts):
+        engine.submit(Request(rid=i, prompt=p, max_new_tokens=RECURRENT_MAX_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_path_counts()
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    by_kernel = dict(flash.launch_counts)
+    ttft, tpot = request_latencies(done)
+    toks = sum(len(r.output) for r in done)
+    row = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, prompt_lens=list(RECURRENT_PROMPT_LENS),
+               buckets=[engine.bucket_for(n) for n in RECURRENT_PROMPT_LENS], requests=len(done), tokens=toks,
+               seconds=dt, tokens_per_s=toks / dt, ttft_ms_p50=float(np.median(ttft)) * 1e3,
+               prefill_ms_p50=float(np.median([r.t_first_token - r.t_prefill for r in done])) * 1e3,
+               tpot_ms_p50=float(np.median(tpot)) * 1e3,
+               # A request's TPOT also spans the other requests' prefills
+               # (each seconds long); the batched decode step alone:
+               decode_step_ms_p50=engine.registry.get("serve_tpot_seconds").percentile(50) * 1e3,
+               flash_launches_by_kernel=by_kernel,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, stats=engine.stats)
+    emit("recurrent", serve=row)
+    if sum(by_kernel.values()) != 0:
+        raise AssertionError(f"{cfg.name} serving launched flash kernels: {by_kernel}")
+    if len(done) != len(prompts) or any(len(r.output) != RECURRENT_MAX_NEW for r in done):
+        raise AssertionError(f"engine finished {len(done)} requests, not all with {RECURRENT_MAX_NEW} tokens")
+    return row
+
+
+def _upcast(tree):
+    """A params dict with every tensor in fp32 (``None`` leaves stay)."""
+    if isinstance(tree, dict):
+        return {k: _upcast(v) for k, v in tree.items()}
+    return None if tree is None else tree.float()
+
+
+def _rel(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def zamba2_forward_vs_naive(cfg, params) -> dict:
+    """forward on 1 x 2048 tokens through the kernel path: one sm90 launch
+    an application of the shared block (counts reset before, read after).
+
+    The whole model's bf16 logits against the naive-attention path are
+    reported, not gated: the first card run read 0.0718 of the largest
+    logit (argmax agreement 0.847) against TOL_PREFILL_REL, as 38 bf16
+    Mamba2 layers carry a one-step difference of an attention output on to
+    the logits (the moe phase's precedent, _prefill_vs_naive).  Gated
+    instead: at each of the 7 applications, the kernel path's attention
+    output against the naive path's on the same input (the kernel path's
+    own hidden state) within TOL_PREFILL_REL; and the whole model in fp32
+    (the bf16 weights upcast; the simt kernel against the naive path),
+    logits within TOL_GRADS["float32"] of the largest.  Beside them, each
+    bf16 path's distance from the fp32 naive logits."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    toks = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    naive = dataclasses.replace(cfg, attention_impl="naive")
+    torch.cuda.synchronize()
+    reset_path_counts()
+    with torch.no_grad():
+        got = forward(params, cfg, tokens=toks)[0].float()
+        torch.cuda.synchronize()
+        launches = dict(flash.launch_counts)
+        ref = forward(params, naive, tokens=toks)[0].float()
+        shared, pos = params["shared_attn"], torch.arange(2048, device="cuda", dtype=torch.int32)[None]
+        per_application, x = [], params["embed"][toks]
+        for idx in range(cfg.num_layers):
+            with_attn = idx % cfg.attn_every == 0
+            if with_attn:
+                h = apply_norm(x, shared["attn_norm"], cfg.norm_type)
+                per_application.append(_rel(*(attention_forward(h, shared["attn"], c, pos).float()
+                                              for c in (cfg, naive))))
+            x = _hybrid_layer(x, _layer(params["mamba_layers"], idx), shared, cfg, pos, with_attn)
+        fp32_cfg = dataclasses.replace(cfg, dtype="float32")
+        fp32_params = _upcast(params)
+        got32 = forward(fp32_params, fp32_cfg, tokens=toks)[0]
+        ref32 = forward(fp32_params, dataclasses.replace(fp32_cfg, attention_impl="naive"), tokens=toks)[0]
+    del fp32_params
+    row = dict(arch=cfg.name, tokens=2048, launches=launches, expected=dict(sm90=_attn_layers(cfg), simt=0),
+               attention_max_rel_err_by_application=per_application, tol=TOL_PREFILL_REL,
+               fp32_logits_max_rel_err=_rel(got32, ref32), fp32_tol=TOL_GRADS["float32"],
+               bf16_logits_max_rel_err=_rel(got, ref),
+               bf16_argmax_agreement=float((got.argmax(-1) == ref.argmax(-1)).float().mean()),
+               bf16_kernel_vs_fp32_naive=_rel(got, ref32), bf16_naive_vs_fp32_naive=_rel(ref, ref32))
+    emit("recurrent", forward_vs_naive=row)
+    if launches != row["expected"]:
+        raise AssertionError(f"zamba2 forward launched {launches}, expected {row['expected']}")
+    if not (max(per_application) <= TOL_PREFILL_REL and row["fp32_logits_max_rel_err"] <= TOL_GRADS["float32"]
+            and torch.isfinite(got).all()):
+        raise AssertionError(f"zamba2 forward differs from the naive path: {row}")
+    return row
+
+
+def decode_vs_forward(cfg) -> dict:
+    """fp32: decode_step over the longest request's tokens, one at a time,
+    against forward's logits at the same positions."""
+    params = init_params(cfg, seed=1, device="cuda")
+    toks = torch.as_tensor(_recurrent_prompts(cfg, 1)[-1][None], device="cuda")
+    with torch.no_grad():
+        full = forward(params, cfg, tokens=toks)[0]
+        cache = init_cache(cfg, 1, toks.shape[1], "cuda")
+        steps = []
+        for i in range(toks.shape[1]):
+            logits, cache = decode_step(params, cfg, toks[:, i:i + 1], cache, i)
+            steps.append(logits[0, 0])
+    err = float((torch.stack(steps) - full).abs().max())
+    row = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, tokens=toks.shape[1],
+               max_abs_err=err, tol=DECODE_VS_FORWARD_ATOL)
+    emit("recurrent", decode_vs_forward=row)
+    if not err <= DECODE_VS_FORWARD_ATOL:
+        raise AssertionError(f"{cfg.name} decode differs from forward: {row}")
+    del params
+    return row
+
+
+def recurrent_phase() -> dict:
+    """The recurrent-families slice on the card (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch in RECURRENT_ARCHS:
+        full = get_config(arch)
+        params = init_params(full, seed=0, device="cuda")
+        row = dict(serve=recurrent_serve(full, params))
+        if full.family == "hybrid":
+            row["forward"] = zamba2_forward_vs_naive(full, params)
+        del params
+        torch.cuda.empty_cache()
+        row["train"] = train(full, TRAIN_SHAPE if full.family == "hybrid" else XLSTM_TRAIN_SHAPE, "recurrent")
+        torch.cuda.empty_cache()
+        fp32 = dataclasses.replace(full, dtype="float32")
+        if full.family == "hybrid":
+            fp32 = dataclasses.replace(fp32, num_layers=ZAMBA2_FP32_DEPTH)
+        row["greedy"] = greedy(fp32, "recurrent", RECURRENT_PROMPT_LENS, RECURRENT_MAX_NEW,
+                               RECURRENT_ENGINE["max_len"])
+        row["decode_vs_forward"] = decode_vs_forward(fp32)
+        if full.family == "hybrid":
+            row["grads"] = grads(full, {"float32": TOL_GRADS["float32"]}, phase="recurrent", **ZAMBA2_GRADS)
+        torch.cuda.empty_cache()
+        out[arch] = row
+    emit("recurrent", seconds=time.perf_counter() - t0)
+    return out
+
+
 # -- phase 10: the autotuner ------------------------------------------------------------
 
 TUNE_PRESETS = ("paper", "full")
@@ -1772,9 +2018,14 @@ def main() -> None:
     simt_instances = len(flash.SIMT_Q_TILES) * sum(k is flash.SIMT for k in flash.KERNELS.values())
     simt_bwd_instances = 2 * len(flash_bwd.SIMT_BWD_TILES) * sum(
         k is flash_bwd.SIMT for k in flash_bwd.BWD_KERNELS.values())
-    emit("build", flash_fwd_sm90=sm90, flash_bwd_sm90=sm90_bwd, flash_fwd=simt, flash_bwd=simt_bwd)
-    if len(sm90) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in sm90 if r["head_dim"] == 128):
-        raise AssertionError(f"flash_fwd_sm90 instantiations missing or spilling at d = 128: {sm90}")
+    # d = 64 is on a main path since zamba2 (its spills printed on their own):
+    # no sm90 forward instantiation may spill.
+    d64_spills = [dict(pwl=r.get("pwl"), registers=r.get("registers"), spill_stores=r["spill_stores"],
+                       spill_loads=r["spill_loads"]) for r in sm90 if r["head_dim"] == 64]
+    emit("build", flash_fwd_sm90=sm90, flash_fwd_sm90_d64_spills=d64_spills, flash_bwd_sm90=sm90_bwd,
+         flash_fwd=simt, flash_bwd=simt_bwd)
+    if len(sm90) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in sm90):
+        raise AssertionError(f"flash_fwd_sm90 instantiations missing or spilling: {sm90}")
     if len(sm90_bwd) != 4 or any(r["spill_stores"] or r["spill_loads"] for r in sm90_bwd):
         raise AssertionError(f"flash_bwd_sm90 instantiations missing or spilling: {sm90_bwd}")
     if len(simt) != simt_instances or any(r["spill_stores"] or r["spill_loads"] for r in simt):
@@ -1809,19 +2060,34 @@ def main() -> None:
     moed = moe_phase()
     spec_moed = spec_moe()
     torch.cuda.empty_cache()
+    recurrent = recurrent_phase()
+    torch.cuda.empty_cache()
     tuned = tune()
 
     serve_shape = next(r for r in timing if r["shape"] == [1, 2048, 16, 128])
+    zamba2 = recurrent["zamba2-1.2b"]
     fwd_launches = dict(serve=served["launches"], spec_serve=specced["launches"],
                         train=trained["launches"]["flash_fwd"],
                         grads_bfloat16=graded["fwd_launches"]["bfloat16"]["sm90"],
                         **{f"moe_serve_{flag}": run["launches"] for flag, run in moed["served"].items()},
-                        arctic_prefill=moed["arctic"]["launches"])
+                        arctic_prefill=moed["arctic"]["launches"],
+                        zamba2_forward=zamba2["forward"]["launches"]["sm90"],
+                        zamba2_train=zamba2["train"]["launches"]["flash_fwd"])
     greedy_shape = next(r for r in simt_timing if r["shape"] == [1, 256, 16, 128])
     simt_launches = dict(greedy=greedied["launches"], grads_float32=graded["fwd_launches"]["float32"]["simt"],
                          moe_greedy=moed["greedy"]["launches"], spec_greedy=spec_greedied["launches"],
                          spec_moe=spec_moed["launches"],
-                         moe_grads_float32=moed["grads"]["fwd_launches"]["float32"]["simt"])
+                         moe_grads_float32=moed["grads"]["fwd_launches"]["float32"]["simt"],
+                         zamba2_grads_float32=zamba2["grads"]["fwd_launches"]["float32"]["simt"])
+    # zamba2's d 64 beside olmo's d 128 at equal work ([4, 2048] causal,
+    # 32 x 64 against 16 x 128), device time.
+    d64 = next(r for r in timing if r["shape"] == [4, 2048, 32, 64])
+    d128 = next(r for r in timing if r["shape"] == [4, 2048, 16, 128])
+    emit("kernels", d64_vs_d128=dict(
+        forward_device_ms=[d64["device_ms"], d128["device_ms"]],
+        backward_whole_device_ms=[bwd_timing["sm90_d64"]["whole"]["device_ms"], bwd_timing["sm90"]["whole"]["device_ms"]],
+        **{f"backward_{k}_device_ms": [bwd_timing["sm90_d64"][k]["device_ms"], bwd_timing["sm90"][k]["device_ms"]]
+           for k in ("dq", "dkv")}))
     # The forward's two kernels, both ports of _fwd_kernel: the sm90 one on
     # the bf16 main path (serve, train), the simt one on the fp32 greedy path.
     records = [dict(
@@ -1834,7 +2100,7 @@ def main() -> None:
         ms=serve_shape["ms"], plain_ms=serve_shape["plain_ms"],
         bound_ms=serve_shape["bound_ms"], bound_by=serve_shape["bound_by"],
         library_ms=serve_shape["library_ms"], shape=serve_shape["shape"], by_shape=timing,
-        ptxas=sm90,
+        ptxas=sm90, d64_spills=d64_spills,
     ), dict(
         name="flash_fwd_simt",
         variant="simt: register-blocked fp32 FMAs on the CUDA cores, staggered cp.async loads, two CTAs an SM, "
@@ -1858,15 +2124,17 @@ def main() -> None:
     simt_grads = next(r for r in bwd_timing["simt"] if r["shape"] == [GRADS_BATCH, GRADS_SEQ, 16, 128])
     bwd_pairs = (
         ("", flash_bwd.SM90, "sm90: wgmma + TMA, producer/consumer warpgroups (bf16, d 64 and 128)",
-         "flash_bwd_sm90.cu", dict(train=trained["launches"], grads_bfloat16=graded["launches"]["bfloat16"]),
+         "flash_bwd_sm90.cu", dict(train=trained["launches"], grads_bfloat16=graded["launches"]["bfloat16"],
+                                   zamba2_train=zamba2["train"]["launches"]),
          {"bfloat16": TOL_BWD[torch.bfloat16], "bfloat16_flips": TOL_BWD_FLIPS,
           "bfloat16_vs_fp32_p": TOL_BWD_FP32P}, bwd_timing["sm90"], sm90_bwd,
-         dict(rep16=bwd_timing["sm90_rep16"])),
+         dict(by_shape=[bwd_timing[k] for k in ("sm90", "sm90_rep16", "sm90_d64")])),
         ("_simt", flash_bwd.SIMT,
          "simt: register-blocked fp32 FMAs on the CUDA cores, staggered cp.async loads, two CTAs an SM, "
          "resident tile 32 or 16 (fp32; bf16 at d 16 and 32)",
          "flash_bwd.cu", dict(grads_float32=graded["launches"]["float32"],
-                              moe_grads_float32=moed["grads"]["launches"]["float32"]),
+                              moe_grads_float32=moed["grads"]["launches"]["float32"],
+                              zamba2_grads_float32=zamba2["grads"]["launches"]["float32"]),
          {"float32": TOL_BWD[torch.float32], "bfloat16": TOL_BWD[torch.bfloat16]}, simt_grads, simt_bwd,
          dict(by_shape=bwd_timing["simt"], by_tile=bwd_timing["simt_tiles"])),
     )

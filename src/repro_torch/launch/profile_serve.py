@@ -3,6 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.profile_serve
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch qwen3-moe-235b-a22b --layers 4 --quant int8
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch zamba2-1.2b
 
 Runs a full-width model (default olmo-1b; ``--layers`` cuts its depth,
 ``--quant`` sets an int8 policy) in bf16 with seeded random weights at the
@@ -13,8 +14,12 @@ ended by a synchronize) and one ``torch.profiler`` trace of it:
 
   * prefill — ``prefill_step`` of one ``PROMPT_LEN``-token request filling a
     ``BUCKET`` cache (what TTFT pays once per request, less the queue wait);
+    the recurrent families (zamba2, xlstm) teacher-force a bucket through
+    ``decode_step``, one step a token, so theirs is ``SCAN_PROMPT_LEN`` in
+    ``SCAN_BUCKET`` (chip_smoke.py's recurrent phase's 40-token request);
   * decode  — ``STEPS`` batched ``decode_step`` calls of ``BATCH`` slots at
-    depth ``DEPTH`` in a ``MAX_LEN`` cache (what TPOT pays).
+    depth ``DEPTH`` in a ``MAX_LEN`` cache (what TPOT pays; recurrent
+    states start at zero).
 
 Each phase prints one JSON line: wall ms, device (kernel) ms from the
 trace, the device's busy share of the wall time, the kernels that take the
@@ -43,6 +48,7 @@ from repro_torch.quant import QUANT_FLAGS
 from repro_torch.quant import quantize
 
 BUCKET, PROMPT_LEN = 2048, 1536  # the serve phase's longest prompt, its bucket
+SCAN_BUCKET, SCAN_PROMPT_LEN = 64, 40  # recurrent families: one decode step a bucket token
 BATCH, MAX_LEN, DEPTH = 4, 2048, 1024  # its engine's slots and cache, half full
 STEPS = 10  # decode steps per timed call
 REPEATS = 5
@@ -120,6 +126,15 @@ def report(phase: str, fn, calls: int, groups=None, **extra) -> None:
     }), flush=True)
 
 
+def _at_depth(cache, depth: int):
+    """The cache with every slot's KV length set to ``depth``."""
+    if isinstance(cache, dict):
+        return {name: _at_depth(part, depth) for name, part in cache.items()}
+    if hasattr(cache, "lengths"):
+        return cache._replace(lengths=torch.full_like(cache.lengths, depth))
+    return cache  # recurrent state
+
+
 @torch.no_grad()
 def main() -> None:
     ap = argparse.ArgumentParser()
@@ -138,16 +153,17 @@ def main() -> None:
     print(json.dumps({"device": torch.cuda.get_device_name(0), "arch": cfg.name, "layers": cfg.num_layers,
                       "quant": args.quant, "dtype": cfg.dtype}), flush=True)
 
-    tokens = torch.randint(0, cfg.vocab_size, (1, BUCKET), generator=gen, device="cuda")
+    recurrent = cfg.family in ("hybrid", "ssm")
+    bucket, prompt_len = (SCAN_BUCKET, SCAN_PROMPT_LEN) if recurrent else (BUCKET, PROMPT_LEN)
+    tokens = torch.randint(0, cfg.vocab_size, (1, bucket), generator=gen, device="cuda")
 
     def prefill():
-        cache = init_cache(cfg, 1, BUCKET, "cuda")
-        prefill_step(params, cfg, tokens, cache, [PROMPT_LEN])
+        cache = init_cache(cfg, 1, bucket, "cuda")
+        prefill_step(params, cfg, tokens, cache, [prompt_len])
 
-    report("prefill", prefill, 1, groups=FORWARD_GROUPS, bucket=BUCKET, prompt_len=PROMPT_LEN)
+    report("prefill", prefill, 1, groups=FORWARD_GROUPS, bucket=bucket, prompt_len=prompt_len)
 
-    cache = init_cache(cfg, BATCH, MAX_LEN, "cuda")
-    cache = cache._replace(lengths=torch.full_like(cache.lengths, DEPTH))
+    cache = _at_depth(init_cache(cfg, BATCH, MAX_LEN, "cuda"), DEPTH)
     step_tokens = torch.randint(0, cfg.vocab_size, (BATCH, 1), generator=gen, device="cuda")
     positions = torch.full((BATCH,), DEPTH, dtype=torch.int32, device="cuda")
 

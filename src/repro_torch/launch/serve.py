@@ -3,6 +3,7 @@ counterpart of ``repro.launch.serve``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --check
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --check --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --check --device cpu
 
 Requests get mixed prompt lengths (the engine buckets them for prefill),
 arrive all at once, and drain through a fixed slot pool, so this drives
@@ -10,7 +11,10 @@ prefill bucketing, slot eviction and back-fill even in a smoke run.  The
 weights are random, from ``--seed``.
 
   --temperature/--top-k/--top-p  sampling policy (default greedy)
-  --chunk N                      chunked flash prefill (N tokens per call)
+  --chunk N                      chunked flash prefill (N tokens per call;
+                                 the recurrent families zamba2-1.2b and
+                                 xlstm-125m prefill by teacher-forcing and
+                                 ignore it)
   --quant int8                   int8 projections + int8 KV cache
                                  (repro_torch.quant; greedy outputs stay
                                  token-equal to sequential decode)

@@ -4,6 +4,8 @@
       --steps 4 --batch 2 --seq 32 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --steps 6 \
       --batch 4 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b --steps 6 \
+      --batch 4 --seq 2048
 
 ``--smoke`` uses the arch's reduced config; without it the full config
 trains (on the card: full-width olmo-1b peaked at 41.48 GB at batch 4 x

@@ -1,16 +1,28 @@
 """Model assembly: init / forward / loss / prefill / decode (counterpart of
-``repro.models.model``), for the dense, moe and vlm families, and the
-encoder family in ``forward`` and ``lm_loss`` (it has no cache).
+``repro.models.model``) for every family:
+
+  dense | moe | vlm | encoder — transformer stacks (the encoder family in
+           ``forward`` and ``lm_loss`` only: it has no cache)
+  hybrid — zamba2: Mamba2 layers and one *shared* attention(+MLP) block
+           applied before every ``cfg.attn_every``-th of them (weights
+           shared, one KV cache slot per application)
+  ssm    — xlstm: (mLSTM, sLSTM) block pairs, attention-free
 
 Params are plain nested dicts with the reference's keys; layer params are
 stacked along a leading ``[L, ...]`` axis, and the layer ``scan`` becomes a
-Python loop over layer slices (with ``cfg.remat``, each layer is a
-``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).  The
-caches are stacked the same way (``KVCache`` leaves ``[L, B, ...]``,
-``lengths [L, B]``; ``QuantKVCache`` leaves under an int8 KV policy) and
-updated in place by prefill, decode and the speculative ``verify_step``.
-MoE layers route with capacity in ``forward``, ``lm_loss`` and prefill, and
-dropless in ``decode_step`` and ``verify_step``.
+Python loop over layer slices (with ``cfg.remat``, each layer, hybrid layer
+with its shared attention, or block pair is a ``torch.utils.checkpoint``, as
+the reference's ``jax.checkpoint``).  The caches are stacked the same way:
+``KVCache`` leaves ``[L, B, ...]``, ``lengths [L, B]`` (``QuantKVCache``
+under an int8 KV policy); for hybrid ``{"attn": KV cache [n_attn, B, ...],
+"mamba": MambaCache [L, B, ...]}``; for ssm ``{"mlstm": MLSTMState,
+"slstm": SLSTMState}`` of ``[L/2, B, ...]`` leaves.  KV rows are written in
+place by prefill, decode and the speculative ``verify_step``; recurrent
+states are replaced by new tensors at every step.  MoE layers route with
+capacity in ``forward``, ``lm_loss`` and prefill, and dropless in
+``decode_step`` and ``verify_step``.  The recurrent families prefill by
+teacher-forcing the prompt through ``decode_step`` (``_prefill_by_scan``),
+as the reference does; they run no flash kernel when serving.
 """
 
 from __future__ import annotations
@@ -34,22 +46,43 @@ from .attention import (
 )
 from .layers import apply_norm, embed_init, mlp_forward, mlp_params, norm_params
 from .moe import moe_forward, moe_params
+from .ssm import init_mamba_cache, mamba_decode, mamba_forward, mamba_params
+from .xlstm import (
+    init_mlstm_state,
+    init_slstm_state,
+    mlstm_decode,
+    mlstm_forward,
+    mlstm_params,
+    slstm_decode,
+    slstm_forward,
+    slstm_params,
+)
 
-_FAMILIES = ("dense", "moe", "vlm")  # every path, caches included
-_FORWARD_FAMILIES = _FAMILIES + ("encoder",)  # init, forward, lm_loss
-_LATER = {
-    "hybrid": "ROADMAP queue 1, recurrent families",
-    "ssm": "ROADMAP queue 1, recurrent families",
-}
+_FAMILIES = ("dense", "moe", "vlm")  # transformer stacks with a KV cache
+_RECURRENT = ("hybrid", "ssm")  # caches with recurrent state
+_FORWARD_FAMILIES = _FAMILIES + _RECURRENT + ("encoder",)
 
 
-def _check_family(cfg: ModelConfig, families=_FAMILIES) -> None:
+def _check_family(cfg: ModelConfig, families=_FAMILIES + _RECURRENT) -> None:
     if cfg.family == "encoder" and cfg.family not in families:
         raise ValueError("encoder archs have no decode cache")
     if cfg.family not in families:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: {_LATER.get(cfg.family, cfg.family)}"
-        )
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _n_attn(cfg: ModelConfig) -> int:
+    """Applications of the hybrid family's shared attention block: one
+    before each layer whose index is a multiple of ``attn_every``."""
+    every = max(cfg.attn_every, 1)
+    return (cfg.num_layers + every - 1) // every
+
+
+def _remat(fn, cfg: ModelConfig, x, *args):
+    """``fn(x, *args)``; with ``cfg.remat`` under autograd only its input is
+    kept and the rest is recomputed in the backward."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, x, *args, use_reentrant=False)
+    return fn(x, *args)
 
 
 def _unstack(stacked: Any, n: int) -> list:
@@ -71,9 +104,19 @@ def _stack(layers: list) -> Any:
     return None if first is None else torch.stack(layers)
 
 
-def _kv(cache, i: int):
-    """Layer ``i``'s cache (views) of a stacked ``KVCache`` or ``QuantKVCache``."""
+def _at(cache, i: int):
+    """Layer ``i``'s cache (views) of a stacked cache NamedTuple."""
     return type(cache)(*(leaf[i] for leaf in cache))
+
+
+def _stack_states(states: list):
+    """Stack per-layer cache NamedTuples along a new axis 0."""
+    return type(states[0])(*(torch.stack(leaves) for leaves in zip(*states)))
+
+
+def _repeat(one, n: int):
+    """A cache NamedTuple stacked ``n`` times, each leaf its own tensor."""
+    return type(one)(*(leaf.expand(n, *leaf.shape).clone() for leaf in one))
 
 
 # ---------------------------------------------------------------------------
@@ -102,14 +145,32 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     _check_family(cfg, _FORWARD_FAMILIES)
     dtype = cfg.activation_dtype
     gen = torch.Generator(device=device).manual_seed(seed)
+    dev = gen.device
     params: dict[str, Any] = {}
     params["embed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)
-    params["final_norm"] = norm_params(cfg.d_model, cfg.norm_type, dtype, gen.device)
+    params["final_norm"] = norm_params(cfg.d_model, cfg.norm_type, dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).T.contiguous()
-    params["layers"] = _stack(
-        [_transformer_layer_params(gen, cfg, dtype) for _ in range(cfg.num_layers)]
-    )
+    if cfg.family == "hybrid":
+        params["mamba_layers"] = _stack([
+            {"norm": norm_params(cfg.d_model, cfg.norm_type, dtype, dev), "mamba": mamba_params(gen, cfg, dtype)}
+            for _ in range(cfg.num_layers)
+        ])
+        params["shared_attn"] = _transformer_layer_params(gen, cfg, dtype)
+    elif cfg.family == "ssm":  # one (mLSTM, sLSTM) pair per block
+        params["blocks"] = _stack([
+            {
+                "mlstm_norm": norm_params(cfg.d_model, cfg.norm_type, dtype, dev),
+                "mlstm": mlstm_params(gen, cfg, dtype),
+                "slstm_norm": norm_params(cfg.d_model, cfg.norm_type, dtype, dev),
+                "slstm": slstm_params(gen, cfg, dtype),
+            }
+            for _ in range(cfg.num_layers // 2)
+        ])
+    else:
+        params["layers"] = _stack(
+            [_transformer_layer_params(gen, cfg, dtype) for _ in range(cfg.num_layers)]
+        )
     return params
 
 
@@ -164,6 +225,20 @@ def _transformer_block(x, layer, cfg: ModelConfig, positions, kv=None, start=0):
     return out if kv is None else (out, kv)
 
 
+def _hybrid_layer(x, layer, shared, cfg: ModelConfig, positions, with_attn: bool):
+    """One zamba2 layer: the shared block first where ``with_attn``, then
+    the residual Mamba2 block."""
+    if with_attn:
+        x = _transformer_block(x, shared, cfg, positions)
+    return x + mamba_forward(apply_norm(x, layer["norm"], cfg.norm_type), layer["mamba"], cfg)
+
+
+def _ssm_block(x, block, cfg: ModelConfig):
+    """One xlstm block: residual mLSTM, then residual sLSTM."""
+    x = x + mlstm_forward(apply_norm(x, block["mlstm_norm"], cfg.norm_type), block["mlstm"], cfg)
+    return x + slstm_forward(apply_norm(x, block["slstm_norm"], cfg.norm_type), block["slstm"], cfg)
+
+
 def forward(
     params: dict,
     cfg: ModelConfig,
@@ -178,14 +253,16 @@ def forward(
     b, s = x.shape[:2]
     if positions is None:
         positions = _default_positions(cfg, b, s, x.device)
-    for layer in _unstack(params["layers"], cfg.num_layers):
-        if cfg.remat and torch.is_grad_enabled():
-            # Keep only the layer's input; recompute the rest in the backward.
-            x = torch.utils.checkpoint.checkpoint(
-                _transformer_block, x, layer, cfg, positions, use_reentrant=False
-            )
-        else:
-            x = _transformer_block(x, layer, cfg, positions)
+    if cfg.family == "hybrid":
+        every = max(cfg.attn_every, 1)
+        for idx, layer in enumerate(_unstack(params["mamba_layers"], cfg.num_layers)):
+            x = _remat(_hybrid_layer, cfg, x, layer, params["shared_attn"], cfg, positions, idx % every == 0)
+    elif cfg.family == "ssm":
+        for block in _unstack(params["blocks"], cfg.num_layers // 2):
+            x = _remat(_ssm_block, cfg, x, block, cfg)
+    else:
+        for layer in _unstack(params["layers"], cfg.num_layers):
+            x = _remat(_transformer_block, cfg, x, layer, cfg, positions)
     return _logits(x, params, cfg)
 
 
@@ -209,22 +286,68 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Stacked per-layer cache (``KVCache``, or ``QuantKVCache`` under an
-    int8 KV policy): leaves [L, B, max_len, ...], lengths [L, B]."""
+    """Stacked per-layer cache: a ``KVCache`` (``QuantKVCache`` under an
+    int8 KV policy) of leaves [L, B, max_len, ...] and lengths [L, B]; for
+    hybrid ``{"attn": that cache with n_attn layers, "mamba": MambaCache}``,
+    for ssm ``{"mlstm": MLSTMState, "slstm": SLSTMState}``, their leaves
+    [layers, B, ...]."""
     _check_family(cfg)
-    one = init_kv_cache(cfg, batch, max_len, cfg.activation_dtype, device)
-    return type(one)(*(leaf.new_zeros((cfg.num_layers, *leaf.shape)) for leaf in one))
+    dtype = cfg.activation_dtype
+    if cfg.family == "ssm":
+        n_blocks = cfg.num_layers // 2
+        return {"mlstm": _repeat(init_mlstm_state(cfg, batch, device), n_blocks),
+                "slstm": _repeat(init_slstm_state(cfg, batch, device), n_blocks)}
+    kv = init_kv_cache(cfg, batch, max_len, dtype, device)
+    if cfg.family == "hybrid":
+        return {"attn": _repeat(kv, _n_attn(cfg)),
+                "mamba": _repeat(init_mamba_cache(cfg, batch, dtype, device), cfg.num_layers)}
+    return _repeat(kv, cfg.num_layers)
+
+
+def _decode_hybrid(params, cfg: ModelConfig, x, cache: dict, pos):
+    """zamba2's layers for one token: application j of the shared block
+    (before layer j * attn_every) reads and writes KV slot j."""
+    shared = params["shared_attn"]
+    every = max(cfg.attn_every, 1)
+    lengths, mamba = [], []
+    for idx, layer in enumerate(_unstack(params["mamba_layers"], cfg.num_layers)):
+        if idx % every == 0:
+            hn = apply_norm(x, shared["attn_norm"], cfg.norm_type)
+            a, kv = decode_attention(hn, shared["attn"], cfg, _at(cache["attn"], idx // every), pos)
+            x = _mlp(x + a, shared, cfg, dropless=True)
+            lengths.append(kv.lengths)
+        hn = apply_norm(x, layer["norm"], cfg.norm_type)
+        y, state = mamba_decode(hn, layer["mamba"], cfg, _at(cache["mamba"], idx))
+        x = x + y
+        mamba.append(state)
+    return x, {"attn": cache["attn"]._replace(lengths=torch.stack(lengths)), "mamba": _stack_states(mamba)}
+
+
+def _decode_ssm(params, cfg: ModelConfig, x, cache: dict):
+    mlstm, slstm = [], []
+    for i, block in enumerate(_unstack(params["blocks"], cfg.num_layers // 2)):
+        hn = apply_norm(x, block["mlstm_norm"], cfg.norm_type)
+        y, state = mlstm_decode(hn, block["mlstm"], cfg, _at(cache["mlstm"], i))
+        x = x + y
+        mlstm.append(state)
+        hn = apply_norm(x, block["slstm_norm"], cfg.norm_type)
+        y, state = slstm_decode(hn, block["slstm"], cfg, _at(cache["slstm"], i))
+        x = x + y
+        slstm.append(state)
+    return x, {"mlstm": _stack_states(mlstm), "slstm": _stack_states(slstm)}
 
 
 def decode_step(
     params: dict,
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [B, 1] int
-    cache: KVCache,
+    cache: Any,
     position,  # int or [B] int: absolute position per slot
-) -> tuple[torch.Tensor, KVCache]:
+) -> tuple[torch.Tensor, Any]:
     """One decode step -> (logits [B, 1, V], cache).  K/V are written into
-    ``cache`` in place; the returned cache carries the advanced lengths."""
+    ``cache`` in place; the returned cache carries the advanced lengths and
+    the new recurrent states (``cache``'s own states are left as they
+    were)."""
     _check_family(cfg)
     x = params["embed"][tokens]
     b = x.shape[0]
@@ -233,16 +356,22 @@ def decode_step(
     if cfg.mrope_sections is not None:
         pos = pos[..., None].expand(b, 1, 3)
 
-    lengths = []
-    for i, layer in enumerate(_unstack(params["layers"], cfg.num_layers)):
-        hn = apply_norm(x, layer["attn_norm"], cfg.norm_type)
-        a, kv = decode_attention(hn, layer["attn"], cfg, _kv(cache, i), pos)
-        # Dropless: a decode token's routing must not depend on its
-        # lane-mates (the reference's decode_step).
-        x = _mlp(x + a, layer, cfg, dropless=True)
-        lengths.append(kv.lengths)
+    if cfg.family == "hybrid":
+        x, new_cache = _decode_hybrid(params, cfg, x, cache, pos)
+    elif cfg.family == "ssm":
+        x, new_cache = _decode_ssm(params, cfg, x, cache)
+    else:
+        lengths = []
+        for i, layer in enumerate(_unstack(params["layers"], cfg.num_layers)):
+            hn = apply_norm(x, layer["attn_norm"], cfg.norm_type)
+            a, kv = decode_attention(hn, layer["attn"], cfg, _at(cache, i), pos)
+            # Dropless: a decode token's routing must not depend on its
+            # lane-mates (the reference's decode_step).
+            x = _mlp(x + a, layer, cfg, dropless=True)
+            lengths.append(kv.lengths)
+        new_cache = cache._replace(lengths=torch.stack(lengths))
     # No logit softcap, as in the reference's decode_step.
-    return _logits(x, params, cfg, softcap=False), cache._replace(lengths=torch.stack(lengths))
+    return _logits(x, params, cfg, softcap=False), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -257,8 +386,35 @@ def _prefill_chunk(params: dict, cfg: ModelConfig, tokens_c, cache: KVCache, sta
     b, c = tokens_c.shape
     positions = _default_positions(cfg, b, c, x.device, offset=start)
     for i, layer in enumerate(_unstack(params["layers"], cfg.num_layers)):
-        x, _ = _transformer_block(x, layer, cfg, positions, kv=_kv(cache, i), start=start)
+        x, _ = _transformer_block(x, layer, cfg, positions, kv=_at(cache, i), start=start)
     return _logits(x, params, cfg)
+
+
+def _freeze(keep: torch.Tensor, new: Any, old: Any) -> Any:
+    """``new`` where ``keep`` [B] holds, else ``old``, leaf by leaf (batch
+    at dim 1).  A leaf written in place (KV rows: ``new is old``) is kept
+    as it is: a frozen slot writes its pad token's K/V at its ``lengths``,
+    a row no read reaches and the next write at that length replaces."""
+    if isinstance(new, dict):
+        return {k: _freeze(keep, new[k], old[k]) for k in new}
+    if isinstance(new, tuple):
+        return type(new)(*(_freeze(keep, n, o) for n, o in zip(new, old)))
+    if new is old:
+        return new
+    return torch.where(keep.reshape((1, -1) + (1,) * (new.dim() - 2)), new, old)
+
+
+def _prefill_by_scan(params: dict, cfg: ModelConfig, tokens, cache, lengths):
+    """The recurrent families' prefill: teacher-force the whole (padded)
+    prompt through ``decode_step``, one token at a time; each slot's state
+    stops advancing past its length, so right-padding never reaches the
+    recurrence (the reference's ``sel``)."""
+    logits = []
+    for t in range(tokens.shape[1]):
+        out, new = decode_step(params, cfg, tokens[:, t:t + 1], cache, t)
+        cache = _freeze(t < lengths, new, cache)
+        logits.append(out[:, 0])
+    return torch.stack(logits, dim=1), cache
 
 
 def prefill_step(
@@ -272,11 +428,17 @@ def prefill_step(
 ) -> tuple[torch.Tensor, KVCache]:
     """Prefill a (padded) prompt batch into ``cache`` -> (logits [B,S,V], cache).
 
-    ``flash_attention`` runs once per chunk of ``chunk_size`` tokens per layer
-    (default: the whole prompt in one chunk); K/V go straight into the cache.
+    Transformer families: ``flash_attention`` runs once per chunk of
+    ``chunk_size`` tokens per layer (default: the whole prompt in one
+    chunk); K/V go straight into the cache.  Recurrent families (hybrid,
+    ssm) teacher-force through ``decode_step`` and ignore ``chunk_size``,
+    as the reference does.
     """
     _check_family(cfg)
     b, s = tokens.shape
+    if cfg.family in _RECURRENT:
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=tokens.device).reshape(b)
+        return _prefill_by_scan(params, cfg, tokens, cache, lengths)
     chunk = min(int(chunk_size), s) if chunk_size else s
     logits = [
         _prefill_chunk(params, cfg, tokens[:, start:start + chunk], cache, start)
@@ -287,23 +449,32 @@ def prefill_step(
     return out, cache._replace(lengths=lengths[None, :].expand(cfg.num_layers, b).clone())
 
 
+def _describe(cache) -> str:
+    shapes = [tuple(leaf.shape) for leaf in cache] if isinstance(cache, tuple) else ""
+    return f"a {type(cache).__name__} {shapes}"
+
+
 def insert_cache(cache, prefix, slot: int):
-    """Copy a prefilled cache (batch 1, seq capacity <= max_len) into batch
-    slot ``slot`` of a decode cache, in place.  Every leaf is [L, B, ...]."""
-    batch, max_len = cache.k.shape[1], cache.k.shape[2]
-    seq = prefix.k.shape[2]
+    """Copy a prefilled cache (batch 1) into batch slot ``slot`` of a decode
+    cache, in place.  Family-agnostic, as the reference's: every leaf is
+    [L, B, ...]; each prefix leaf lands at the start of the slot's span
+    (KV rows up to the prefix's seq capacity, <= max_len; lengths and
+    recurrent states whole)."""
+    if isinstance(cache, dict) and isinstance(prefix, dict) and cache.keys() == prefix.keys():
+        for name in cache:
+            insert_cache(cache[name], prefix[name], slot)
+        return cache
     # The reference's dynamic_update_slice would clamp an out-of-range slot
     # or an over-long prefix; no caller asks for that, so refuse it.
-    if not 0 <= slot < batch or prefix.k.shape[1] != 1 or seq > max_len or type(prefix) is not type(cache):
-        raise ValueError(
-            f"cannot insert a {type(prefix).__name__} [B=1? {prefix.k.shape[1]}, S={seq}] prefix "
-            f"into slot {slot} of a {type(cache).__name__} [B={batch}, S={max_len}]"
-        )
-    for name in cache._fields:
-        if name == "lengths":
-            cache.lengths[:, slot:slot + 1] = prefix.lengths
-        else:
-            getattr(cache, name)[:, slot:slot + 1, :seq] = getattr(prefix, name)
+    ok = type(prefix) is type(cache) and isinstance(cache, tuple) and all(
+        src.shape[1] == 1 and src.shape[0] == dst.shape[0] and src.dim() == dst.dim()
+        and all(n <= m for n, m in zip(src.shape[2:], dst.shape[2:]))
+        for dst, src in zip(cache, prefix)
+    )
+    if not ok or not 0 <= slot < cache[0].shape[1]:
+        raise ValueError(f"cannot insert {_describe(prefix)} into slot {slot} of {_describe(cache)}")
+    for dst, src in zip(cache, prefix):
+        dst[(slice(None), slice(slot, slot + 1)) + tuple(slice(0, n) for n in src.shape[2:])] = src
     return cache
 
 
@@ -342,7 +513,7 @@ def verify_step(
         pos = pos[..., None].expand(b, s, 3)
     for i, layer in enumerate(_unstack(params["layers"], cfg.num_layers)):
         hn = apply_norm(x, layer["attn_norm"], cfg.norm_type)
-        a, _ = verify_attention(hn, layer["attn"], cfg, _kv(cache, i), pos, write_pos)
+        a, _ = verify_attention(hn, layer["attn"], cfg, _at(cache, i), pos, write_pos)
         # Dropless, as decode_step: verify row j must equal the decode step
         # it replaces whatever its lane-mates route to.
         x = _mlp(x + a, layer, cfg, dropless=True)

@@ -5,10 +5,14 @@ Requests flow through three phases:
   * **prefill** — the whole prompt, right-padded to a power-of-two *bucket*,
     goes through ``prefill_step`` into a fresh single-request cache sized to
     the bucket; chunked flash attention writes K/V straight into it.  The
-    first token is sampled from the logits of the last true position
-    (padding after the prompt is harmless because attention is causal).
+    recurrent families (hybrid, ssm) teacher-force the bucket through
+    ``decode_step`` instead, their state frozen past the prompt, and ignore
+    ``prefill_chunk``, as the reference does.  The first token is sampled
+    from the logits of the last true position (padding after the prompt is
+    harmless because attention is causal).
   * **insert** — the prefilled cache is copied into a free batch slot of the
-    shared decode cache (``insert_cache``).
+    shared decode cache (``insert_cache``: KV rows, lengths and recurrent
+    states alike).
   * **generate** — one batched decode step advances every live slot by one
     token.  The cache keeps per-slot lengths, so requests at different
     depths share a batch; slots retire at EOS, ``max_new_tokens`` or cache

@@ -46,7 +46,7 @@ from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.spec import SpecConfig  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
-FULL_ARCHS = ["olmo-1b", "qwen3-moe-235b-a22b", "arctic-480b"]
+FULL_ARCHS = ["olmo-1b", "qwen3-moe-235b-a22b", "arctic-480b", "zamba2-1.2b", "xlstm-125m"]
 
 
 # -- tracing ------------------------------------------------------------------

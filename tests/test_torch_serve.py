@@ -145,3 +145,18 @@ def test_int8_chunked_equals_unchunked_and_sequential(quant):
     assert chunked == out
     for i, p in enumerate(prompts):
         assert out[i] == sequential_greedy_decode(cfg, params, p, MAX_NEW, max_len=MAX_LEN)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m"])
+def test_launcher_serves_recurrent_archs(monkeypatch, capsys, arch):
+    """The serve launcher on the recurrent families' smoke configs: mixed
+    prompt lengths through the scan prefill and batched decode, every
+    output equal to sequential decode (--check)."""
+    from repro_torch.launch import serve as launcher
+
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", arch, "--requests", "4", "--prompt-len", "10",
+                                     "--max-new", "4", "--batch", "2", "--max-len", "32", "--check",
+                                     "--device", "cpu"])
+    launcher.main()
+    out = capsys.readouterr().out
+    assert "completed 4/4 on cpu" in out and "check OK: all 4 outputs match" in out

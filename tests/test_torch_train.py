@@ -96,14 +96,17 @@ def _both(batch):
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "hubert-xlarge", "qwen3-moe-235b-a22b", "arctic-480b",
-                                  "olmo-1b@int8", "qwen3-moe-235b-a22b@int8-per-tensor"])
+                                  "olmo-1b@int8", "qwen3-moe-235b-a22b@int8-per-tensor",
+                                  "zamba2-1.2b"])
 def test_lm_loss_and_grads_match_jax(arch):
     """olmo-1b: tokens, tied embeddings, causal.  hubert-xlarge: the encoder
     family, frame embeddings in, bidirectional attention, an untied head
     (its token embedding gets zero gradient on both sides).  qwen3-moe and
     arctic: capacity-bound routing (the router's gradient through the
     renormalised top-k probabilities; arctic's dense residual).  Under int8:
-    straight-through gradients of the int8 projections and experts."""
+    straight-through gradients of the int8 projections and experts.
+    zamba2: Mamba2 layers and the shared block, whose gradient sums its
+    applications' (xlstm-125m: tests/test_torch_recurrent.py)."""
     jcfg, tcfg, jparams, tparams = _bridged(arch)
     if arch == "hubert-xlarge":
         rng = np.random.default_rng(1)
@@ -340,6 +343,11 @@ def test_launcher_trains_and_refuses_unported_flags(monkeypatch, capsys, tmp_pat
     launcher.main()
     assert "done at step 2 on cpu" in capsys.readouterr().out
     # --metrics-out and --trace-out are ported (tests/test_torch_obs.py).
+    # The recurrent families, smoke configs.
+    for arch in ("zamba2-1.2b", "xlstm-125m"):
+        monkeypatch.setattr("sys.argv", ["train", "--arch", arch] + argv[3:-1] + [str(tmp_path / arch)])
+        launcher.main()
+        assert "done at step 2 on cpu" in capsys.readouterr().out
     monkeypatch.setattr("sys.argv", argv + ["--mesh", "2x1"])
     with pytest.raises(SystemExit, match="not ported yet"):
         launcher.main()
