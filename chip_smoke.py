@@ -170,6 +170,29 @@ non-zero):
                depth the greedy and decode-vs-forward gates.  The phase
                prints its seconds.
 
+ 14. dist    — (runs after recurrent, before tune) the distribution slice:
+               a world-size-1 NCCL group and a 1 x 1 ("data", "model") mesh;
+               the params placed as DTensors by the TP rules
+               (repro_torch.dist.sharding; every placement fits to
+               Replicate) and the model run through its islands
+               (repro_torch.models.parallel).  Full-width olmo-1b in bf16
+               served under the mesh with the serve phase's requests
+               (unchunked): tokens equal to the serve phase's, the same sm90
+               launches, TTFT/TPOT/tokens/s beside the serve phase's;
+               trained 3 steps at the train phase's 4 x 2048: losses equal
+               to the train phase's first 3 bit for bit, half its launches
+               of each kernel, step times beside; qwen3-moe-235b-a22b at
+               depth 4 under none served under the mesh (the expert-parallel
+               branch at model = 1): tokens, MoE calls and launches equal to
+               the moe phase's.  Then, the NCCL group destroyed, the
+               dry-run on fake groups: lower_cell("olmo-1b", 4 x 2048, 1 x 1)
+               (predicted t_compute, t_memory and bytes per device beside the
+               train phase's step time and peak), and run_cell("olmo-1b",
+               "train_4k") on the 16 x 16 production mesh.  The recurrent
+               phase also serves zamba2-1.2b and xlstm-125m under int8 (one
+               request each, _int_mm calls gated non-zero: the width
+               padding of fault F1's repair).  The phase prints its seconds.
+
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
 
@@ -202,14 +225,21 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from torch.distributed.tensor import DTensor  # noqa: E402
+
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.pwl_exp2 import LOG2_E, fp16_negative_normals, pwl_error_stats  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd  # noqa: E402
+from repro_torch.dist import param_shardings, place  # noqa: E402
 from repro_torch.kernels.pwl_exp2 import kernel as pwl  # noqa: E402
 from repro_torch.launch import scrape_log  # noqa: E402
+from repro_torch.launch.cells import lower_cell  # noqa: E402
+from repro_torch.launch.dryrun import fake_process_group, run_cell  # noqa: E402
+from repro_torch.launch.mesh import ensure_process_group, make_debug_mesh  # noqa: E402
+from repro_torch.launch.roofline import analyze_trace  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.attention import attention_forward  # noqa: E402
 from repro_torch.models.layers import apply_norm  # noqa: E402
@@ -1086,20 +1116,23 @@ def _layer(stacked, i):
     return None if stacked is None else stacked[i]
 
 
-def serve(cfg, params, phase: str = "serve") -> dict:
+def serve(cfg, params, phase: str = "serve", *, mesh=None, chunks=(None, 512), vs_naive: bool = True) -> dict:
+    """The engine on SERVE_PROMPT_LENS's requests, unchunked and chunked
+    (``chunks``), with ``mesh`` under a device mesh (params placed by the
+    caller)."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SERVE_PROMPT_LENS]
     # Warm-up (not counted, not timed): CUDA context, cuBLAS handles, the
     # kernel's library load.
-    warm = ServeEngine(cfg, params, batch_size=4, max_len=2048, device="cuda")
+    warm = ServeEngine(cfg, params, batch_size=4, max_len=2048, device="cuda", mesh=mesh)
     warm.submit(Request(rid=-1, prompt=prompts[0], max_new_tokens=2))
     warm.run()
     del warm  # its cache must not count in the runs' peak memory
 
     runs, launches, outputs = [], 0, {}
-    for chunk in (None, 512):
+    for chunk in chunks:
         engine = ServeEngine(cfg, params, batch_size=4, max_len=2048,
-                             prefill_chunk=chunk, device="cuda")
+                             prefill_chunk=chunk, device="cuda", mesh=mesh)
         for i, p in enumerate(prompts):
             engine.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
         torch.cuda.synchronize()
@@ -1124,6 +1157,7 @@ def serve(cfg, params, phase: str = "serve") -> dict:
         ttft, tpot = request_latencies(done)
         toks = sum(len(r.output) for r in done)
         run = dict(arch=cfg.name, layers=cfg.num_layers, quant=_quant_flag(cfg), prefill_chunk=chunk,
+                   mesh=None if mesh is None else "x".join(map(str, mesh.shape)),
                    requests=len(done), tokens=toks, seconds=dt,
                    tokens_per_s=toks / dt, ttft_ms_p50=float(np.median(ttft)) * 1e3,
                    prefill_ms_p50=float(np.median(
@@ -1139,10 +1173,11 @@ def serve(cfg, params, phase: str = "serve") -> dict:
             raise AssertionError(f"the {run['quant']} policy made no _int_mm call")
         emit(phase, **run)
         runs.append(run)
-    same = sum(outputs[None][i] == outputs[512][i] for i in outputs[None])
-    emit(phase, chunked_equals_unchunked=f"{same}/{len(prompts)} requests")
+    if len(chunks) > 1:
+        same = sum(outputs[None][i] == outputs[512][i] for i in outputs[None])
+        emit(phase, chunked_equals_unchunked=f"{same}/{len(prompts)} requests")
     return dict(runs=runs, launches=launches, outputs=outputs,
-                prefill_vs_naive=_prefill_vs_naive(cfg, params, prompts[3], phase))
+                prefill_vs_naive=_prefill_vs_naive(cfg, params, prompts[3], phase) if vs_naive else None)
 
 
 def _quant_flag(cfg) -> str:
@@ -1224,17 +1259,22 @@ TRAIN_STEPS = 6
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
 
 
-def train(cfg, shape=TRAIN_SHAPE, phase: str = "train") -> dict:
+def train(cfg, shape=TRAIN_SHAPE, phase: str = "train", *, steps: int = TRAIN_STEPS, mesh=None) -> dict:
     """The port's Trainer on a full-width model (olmo-1b in the train
-    phase); launch counts of the run (forward, with the remat recompute,
-    and each backward kernel, per flash call of the model), and its JSONL
-    metrics stream read back through scrape_log."""
+    phase), ``steps`` steps, under ``mesh`` if given; launch counts of the
+    run (forward, with the remat recompute, and each backward kernel, per
+    flash call of the model), and its JSONL metrics stream read back through
+    scrape_log.  The losses of the first steps do not depend on ``steps``
+    (the lr schedule's warm-up ends at step TRAIN_WARMUP).  A run of
+    TRAIN_STEPS must end below its first loss; a shorter one (the dist
+    phase's, gated by equality with the train phase's losses) need not: the
+    third loss rose above the first in a run of six (11.12, 9.57, 15.61)."""
     with tempfile.TemporaryDirectory() as ckpt_dir:
         jsonl = Path(ckpt_dir) / "metrics.jsonl"
-        tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1, ckpt_dir=ckpt_dir,
+        tcfg = TrainerConfig(total_steps=steps, ckpt_every=steps + 1, ckpt_dir=ckpt_dir,
                              peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, log_every=1, seed=0,
                              metrics_jsonl=str(jsonl))
-        trainer = Trainer(cfg, shape, tcfg, device="cuda")
+        trainer = Trainer(cfg, shape, tcfg, device="cuda", mesh=mesh)
         state = trainer.init_state()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1247,29 +1287,30 @@ def train(cfg, shape=TRAIN_SHAPE, phase: str = "train") -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         records = scrape_log.scrape(jsonl.read_text())
     losses = state["losses"]
-    steps = list(trainer.watchdog.durations)
+    steps_s = list(trainer.watchdog.durations)
     tokens = shape.global_batch * shape.seq_len
-    step_s = float(np.median(steps[1:]))  # the first step also warms up
-    calls = _attn_layers(cfg) * TRAIN_STEPS
+    step_s = float(np.median(steps_s[1:]))  # the first step also warms up
+    calls = _attn_layers(cfg) * steps
     expected = dict(flash_fwd=calls * (2 if cfg.remat else 1), flash_fwd_simt=0,
                     flash_bwd_sm90_dq=calls, flash_bwd_sm90_dkv=calls, flash_bwd_dq=0, flash_bwd_dkv=0)
     emit(phase, arch=cfg.name, dtype=cfg.dtype, remat=cfg.remat, batch=shape.global_batch,
-         seq=shape.seq_len, losses=losses, step_seconds=steps, step_s_median=step_s,
+         mesh=None if mesh is None else "x".join(map(str, mesh.shape)),
+         seq=shape.seq_len, losses=losses, step_seconds=steps_s, step_s_median=step_s,
          tokens_per_s=tokens / step_s, max_memory_allocated_gb=peak_gb,
          launches=launches, expected_launches=expected)
     mfu = trainer.registry.get("mfu").labels(phase="train").value
     emit(phase, metrics_jsonl_records=len(records), metrics_jsonl_losses=[r["loss"] for r in records],
          mfu_vs_paper_fsa_array=mfu, mfu_denominator=MFU_DENOMINATOR)
-    if len(records) != TRAIN_STEPS or not all(math.isfinite(r["loss"]) for r in records):
+    if len(records) != steps or not all(math.isfinite(r["loss"]) for r in records):
         raise AssertionError(f"scrape_log read {len(records)} records of the metrics stream: {records}")
     if launches != expected:
         raise AssertionError(f"training launched {launches}, expected {expected}")
-    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"losses not finite at every step: {losses}")
-    if not losses[-1] < losses[0]:
+    if steps >= TRAIN_STEPS and not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    return dict(launches=launches, step_s=step_s, tokens_per_s=tokens / step_s, losses=losses,
-                max_memory_allocated_gb=peak_gb)
+    return dict(launches=launches, step_s=step_s, step_seconds=steps_s, tokens_per_s=tokens / step_s,
+                losses=losses, max_memory_allocated_gb=peak_gb)
 
 
 # -- phase 9: gradients, kernel path vs naive path ---------------------------------
@@ -1700,16 +1741,22 @@ XLSTM_TRAIN_SHAPE = ShapeConfig("chip_smoke_xlstm", 256, 2, "train")
 DECODE_VS_FORWARD_ATOL = 5e-3
 
 
-def _recurrent_prompts(cfg, seed: int) -> list:
+# Under --quant int8 (fault F1's repair: xlstm's [768, 4] gate products pad
+# their widths for _int_mm), one request: every decode step quantizes every
+# weight, and the scan prefill is a decode step a bucket token.
+RECURRENT_INT8_PROMPT_LENS = (16,)
+
+
+def _recurrent_prompts(cfg, seed: int, lens=RECURRENT_PROMPT_LENS) -> list:
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in RECURRENT_PROMPT_LENS]
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
 
 
-def recurrent_serve(cfg, params) -> dict:
-    """The 4 requests through ServeEngine: tokens/s, TTFT, prefill, TPOT,
-    peak memory; no flash launch (the scan prefill and decode attend by the
-    grouped product)."""
-    prompts = _recurrent_prompts(cfg, 0)
+def recurrent_serve(cfg, params, prompt_lens=RECURRENT_PROMPT_LENS) -> dict:
+    """The requests through ServeEngine: tokens/s, TTFT, prefill, TPOT,
+    peak memory, _int_mm calls; no flash launch (the scan prefill and
+    decode attend by the grouped product)."""
+    prompts = _recurrent_prompts(cfg, 0, prompt_lens)
     warm = ServeEngine(cfg, params, device="cuda", **RECURRENT_ENGINE)
     warm.submit(Request(rid=-1, prompt=prompts[0], max_new_tokens=2))
     warm.run()
@@ -1727,8 +1774,9 @@ def recurrent_serve(cfg, params) -> dict:
     by_kernel = dict(flash.launch_counts)
     ttft, tpot = request_latencies(done)
     toks = sum(len(r.output) for r in done)
-    row = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, prompt_lens=list(RECURRENT_PROMPT_LENS),
-               buckets=[engine.bucket_for(n) for n in RECURRENT_PROMPT_LENS], requests=len(done), tokens=toks,
+    row = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, quant=_quant_flag(cfg),
+               prompt_lens=list(prompt_lens), buckets=[engine.bucket_for(n) for n in prompt_lens],
+               requests=len(done), tokens=toks, int_mm_calls=quantize.int_mm_calls,
                seconds=dt, tokens_per_s=toks / dt, ttft_ms_p50=float(np.median(ttft)) * 1e3,
                prefill_ms_p50=float(np.median([r.t_first_token - r.t_prefill for r in done])) * 1e3,
                tpot_ms_p50=float(np.median(tpot)) * 1e3,
@@ -1740,6 +1788,8 @@ def recurrent_serve(cfg, params) -> dict:
     emit("recurrent", serve=row)
     if sum(by_kernel.values()) != 0:
         raise AssertionError(f"{cfg.name} serving launched flash kernels: {by_kernel}")
+    if cfg.quant is not None and row["int_mm_calls"] == 0:
+        raise AssertionError(f"{cfg.name} under {row['quant']} made no _int_mm call")
     if len(done) != len(prompts) or any(len(r.output) != RECURRENT_MAX_NEW for r in done):
         raise AssertionError(f"engine finished {len(done)} requests, not all with {RECURRENT_MAX_NEW} tokens")
     return row
@@ -1840,6 +1890,7 @@ def recurrent_phase() -> dict:
         full = get_config(arch)
         params = init_params(full, seed=0, device="cuda")
         row = dict(serve=recurrent_serve(full, params))
+        row["serve_int8"] = recurrent_serve(get_config(arch, "int8"), params, RECURRENT_INT8_PROMPT_LENS)
         if full.family == "hybrid":
             row["forward"] = zamba2_forward_vs_naive(full, params)
         del params
@@ -1857,6 +1908,113 @@ def recurrent_phase() -> dict:
         torch.cuda.empty_cache()
         out[arch] = row
     emit("recurrent", seconds=time.perf_counter() - t0)
+    return out
+
+
+# -- phase 14: distribution under a 1 x 1 mesh, and the dry-run -------------------------
+
+DIST_TRAIN_STEPS = 3
+
+
+def _mesh_1x1():
+    """A 1 x 1 ("data", "model") mesh over a world-size-1 NCCL group."""
+    ensure_process_group(1, "cuda")
+    if torch.distributed.get_backend() != "nccl":
+        raise AssertionError(f"the 1 x 1 mesh runs on {torch.distributed.get_backend()}, not NCCL")
+    return make_debug_mesh(1, 1, device_type="cuda")
+
+
+def _placed(cfg, mesh):
+    """The seed-0 params (those of the no-mesh phases) placed on ``mesh``."""
+    params = init_params(cfg, seed=0, device="cuda")
+    return place(params, param_shardings(params, cfg, mesh))
+
+
+def _beside(phase: str, name: str, mesh_run: dict, plain_run: dict, keys) -> None:
+    emit(phase, **{name: {k: dict(mesh_1x1=mesh_run[k], no_mesh=plain_run[k],
+                                  ratio=mesh_run[k] / plain_run[k] if plain_run[k] else None)
+                          for k in keys}})
+
+
+def dist_phase(served: dict, trained: dict, moe_served: dict) -> dict:
+    """The distribution slice on the card (see the module docstring)."""
+    t0 = time.perf_counter()
+    mesh = _mesh_1x1()
+    out = {}
+    with torch.no_grad():
+        cfg = get_config("olmo-1b")
+        params = _placed(cfg, mesh)
+        leaf = params["layers"]["attn"]["wq"]
+        if not isinstance(leaf, DTensor) or leaf.device.type != "cuda":
+            raise AssertionError(f"params not placed as DTensors on the card: {type(leaf)}")
+        out["serve"] = serve(cfg, params, "dist", mesh=mesh, chunks=(None,), vs_naive=False)
+        del params
+    torch.cuda.empty_cache()
+    got, want = out["serve"]["outputs"][None], served["outputs"][None]
+    _beside("dist", "olmo_serve", out["serve"]["runs"][0], served["runs"][0],
+            ("ttft_ms_p50", "tpot_ms_p50", "prefill_ms_p50", "tokens_per_s", "max_memory_allocated_gb"))
+    emit("dist", olmo_tokens_equal=f"{sum(got[i] == want[i] for i in want)}/{len(want)} requests")
+    if got != want:
+        raise AssertionError(f"olmo-1b under the 1 x 1 mesh served other tokens: {got} != {want}")
+    if out["serve"]["runs"][0]["flash_launches_by_kernel"] != served["runs"][0]["flash_launches_by_kernel"]:
+        raise AssertionError("the 1 x 1 mesh's forward launches differ from the no-mesh run's")
+
+    out["train"] = train(get_config("olmo-1b"), TRAIN_SHAPE, "dist", steps=DIST_TRAIN_STEPS, mesh=mesh)
+    torch.cuda.empty_cache()
+    want_losses = trained["losses"][:DIST_TRAIN_STEPS]
+    emit("dist", olmo_train_losses=dict(mesh_1x1=out["train"]["losses"], no_mesh=want_losses),
+         olmo_train_step_s=dict(mesh_1x1=out["train"]["step_seconds"], no_mesh=trained["step_seconds"]))
+    if out["train"]["losses"] != want_losses:
+        raise AssertionError(f"losses under the 1 x 1 mesh differ: {out['train']['losses']} != {want_losses}")
+    want_launches = {k: v * DIST_TRAIN_STEPS // TRAIN_STEPS for k, v in trained["launches"].items()}
+    if out["train"]["launches"] != want_launches or not out["train"]["launches"]["flash_bwd_sm90_dkv"]:
+        raise AssertionError(f"training launches {out['train']['launches']}, no-mesh {want_launches}")
+
+    with torch.no_grad():
+        qcfg = dataclasses.replace(get_config(MOE_ARCH, "none"), num_layers=MOE_SERVE_DEPTH)
+        params = _placed(qcfg, mesh)
+        out["moe_serve"] = serve(qcfg, params, "dist", mesh=mesh, chunks=(None,), vs_naive=False)
+        del params
+    torch.cuda.empty_cache()
+    mrun, mwant = out["moe_serve"]["runs"][0], moe_served["runs"][0]
+    got, want = out["moe_serve"]["outputs"][None], moe_served["outputs"][None]
+    _beside("dist", "moe_serve", mrun, mwant, ("ttft_ms_p50", "tpot_ms_p50", "tokens_per_s"))
+    emit("dist", moe_tokens_equal=f"{sum(got[i] == want[i] for i in want)}/{len(want)} requests",
+         moe_calls=dict(mesh_1x1=mrun["moe_calls"], no_mesh=mwant["moe_calls"]))
+    if got != want or mrun["moe_calls"] != mwant["moe_calls"]:
+        raise AssertionError(f"qwen3-moe under the 1 x 1 mesh: tokens or MoE calls differ ({mrun['moe_calls']})")
+    if mrun["flash_launches_by_kernel"] != mwant["flash_launches_by_kernel"]:
+        raise AssertionError("qwen3-moe's forward launches under the mesh differ from the no-mesh run's")
+    torch.distributed.destroy_process_group()
+
+    # The dry-run's prediction for the train phase's step, on a 1 x 1 mesh
+    # of a fake group, beside the step the card measured.
+    with fake_process_group(1):
+        fake = torch.distributed.device_mesh.init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        cell = lower_cell("olmo-1b", TRAIN_SHAPE, fake, scan_unroll=1)
+        terms = analyze_trace(cell.cost, 1)
+        bytes_per_device = cell.arg_bytes + cell.cost.peak - cell.donated_bytes
+        out["predicted"] = dict(t_compute_s=terms.t_compute, t_memory_s=terms.t_memory,
+                                t_collective_s=terms.t_collective, flops=terms.flops,
+                                bytes_per_device_gb=bytes_per_device / 1e9, trace_s=cell.trace_s)
+        # The serve phase's batched decode step (4 slots, 2048 rows): the
+        # DTensor ops it dispatches beside the local ops it runs.
+        step = lower_cell("olmo-1b", ShapeConfig("decode", 2048, 4, "decode"), fake)
+        out["decode_ops"] = dict(dtensor_ops=step.cost.dtensor_ops, local_ops=step.cost.local_ops)
+    emit("dist", olmo_train_predicted=out["predicted"],
+         olmo_train_measured=dict(step_s=trained["step_s"], max_memory_allocated_gb=trained["max_memory_allocated_gb"]),
+         olmo_train_ops=dict(dtensor_ops=cell.cost.dtensor_ops, local_ops=cell.cost.local_ops),
+         olmo_decode_step_ops=out["decode_ops"])
+    # The production path: one cell on the 16 x 16 mesh of a 256-rank fake group.
+    with fake_process_group(256):
+        out["dryrun"] = run_cell("olmo-1b", "train_4k", multi_pod=False, verbose=False)
+    emit("dist", dryrun_olmo_train_4k_16x16={k: out["dryrun"][k] for k in (
+        "status", "lower_s", "compile_s", "gb_per_device", "hlo_flops", "t_compute_s", "t_memory_s",
+        "t_collective_s", "bottleneck", "useful_flops_ratio", "collective_breakdown")})
+    if out["dryrun"]["status"] != "ok":
+        raise AssertionError(f"dry-run cell failed: {out['dryrun']}")
+    out["seconds"] = time.perf_counter() - t0
+    emit("dist", seconds=out["seconds"])
     return out
 
 
@@ -2062,6 +2220,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     recurrent = recurrent_phase()
     torch.cuda.empty_cache()
+    disted = dist_phase(served, trained, moed["served"]["none"])
+    torch.cuda.empty_cache()
     tuned = tune()
 
     serve_shape = next(r for r in timing if r["shape"] == [1, 2048, 16, 128])
@@ -2072,7 +2232,10 @@ def main() -> None:
                         **{f"moe_serve_{flag}": run["launches"] for flag, run in moed["served"].items()},
                         arctic_prefill=moed["arctic"]["launches"],
                         zamba2_forward=zamba2["forward"]["launches"]["sm90"],
-                        zamba2_train=zamba2["train"]["launches"]["flash_fwd"])
+                        zamba2_train=zamba2["train"]["launches"]["flash_fwd"],
+                        dist_serve=disted["serve"]["launches"],
+                        dist_train=disted["train"]["launches"]["flash_fwd"],
+                        dist_moe_serve=disted["moe_serve"]["launches"])
     greedy_shape = next(r for r in simt_timing if r["shape"] == [1, 256, 16, 128])
     simt_launches = dict(greedy=greedied["launches"], grads_float32=graded["fwd_launches"]["float32"]["simt"],
                          moe_greedy=moed["greedy"]["launches"], spec_greedy=spec_greedied["launches"],
@@ -2125,7 +2288,7 @@ def main() -> None:
     bwd_pairs = (
         ("", flash_bwd.SM90, "sm90: wgmma + TMA, producer/consumer warpgroups (bf16, d 64 and 128)",
          "flash_bwd_sm90.cu", dict(train=trained["launches"], grads_bfloat16=graded["launches"]["bfloat16"],
-                                   zamba2_train=zamba2["train"]["launches"]),
+                                   zamba2_train=zamba2["train"]["launches"], dist_train=disted["train"]["launches"]),
          {"bfloat16": TOL_BWD[torch.bfloat16], "bfloat16_flips": TOL_BWD_FLIPS,
           "bfloat16_vs_fp32_p": TOL_BWD_FP32P}, bwd_timing["sm90"], sm90_bwd,
          dict(by_shape=[bwd_timing[k] for k in ("sm90", "sm90_rep16", "sm90_d64")])),

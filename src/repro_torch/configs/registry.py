@@ -1,5 +1,5 @@
-"""Architecture registry: full configs + reduced smoke configs (copy of
-``repro.configs.registry``; the dry-run cell rules come with the dry-run)."""
+"""Architecture registry: full configs + reduced smoke configs + cell rules
+(copy of ``repro.configs.registry``)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ from typing import Union
 
 from repro_torch.quant.config import QuantConfig, parse_quant
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig
 
 ARCH_IDS = (
     "qwen3-moe-235b-a22b",
@@ -61,3 +61,32 @@ def get_smoke_config(
 ) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return _with_quant(mod.SMOKE_CONFIG, quant)
+
+
+def runnable_cells() -> list[tuple[str, str]]:
+    """All (arch, shape) dry-run cells, applying the skip rules:
+    - encoder-only archs (hubert) have no decode step -> skip decode shapes;
+    - long_500k needs sub-quadratic attention -> only hybrid/ssm archs.
+    """
+    cells = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape_name, shape in SHAPES.items():
+            if shape.kind == "decode" and cfg.family == "encoder":
+                continue  # no decode step exists
+            if shape_name == "long_500k" and cfg.family not in ("hybrid", "ssm"):
+                continue  # O(S^2) full attention
+            cells.append((arch, shape_name))
+    return cells
+
+
+def skipped_cells() -> list[tuple[str, str, str]]:
+    out = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape_name, shape in SHAPES.items():
+            if shape.kind == "decode" and cfg.family == "encoder":
+                out.append((arch, shape_name, "encoder-only: no decode step"))
+            elif shape_name == "long_500k" and cfg.family not in ("hybrid", "ssm"):
+                out.append((arch, shape_name, "pure full attention: O(S^2) at 524k"))
+    return out

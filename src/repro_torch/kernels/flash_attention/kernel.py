@@ -148,7 +148,7 @@ def flash_attention_fwd(
         causal=causal, scale=scale, q_offset=q_offset,
         exp2_impl=exp2_impl, num_segments=num_segments, return_lse=return_lse,
     )
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: a shape-only trace (the dry-run)
         return flash_attention_fwd_plain(
             q, k, v, block_q=block_q, block_k=block_k, **kwargs
         )

@@ -165,7 +165,7 @@ def flash_attention_bwd(
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"inputs on different devices: {[str(t.device) for t in tensors]}")
     kw = dict(causal=causal, scale=scale, q_offset=q_offset)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: a shape-only trace (the dry-run)
         return flash_attention_bwd_plain(*tensors, block_q=block_q, block_k=block_k, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")

@@ -32,9 +32,16 @@ weights are random, from ``--seed``.
                                  histograms, occupancy and MFU gauges)
   --trace-out PATH               save a Chrome-trace/Perfetto JSON of the run
   --device                       cuda (default) or cpu
+  --mesh DxM                     shard params + decode cache over a debug
+                                 mesh (data x model), e.g. --mesh 2x2;
+                                 D*M > 1 runs under torchrun (gloo with
+                                 --device cpu, NCCL on the card), --mesh 1x1
+                                 makes a world-size-1 group
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
       --spec-draft self --spec-quant int8 --check
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch yi-9b --check --device cpu --mesh 2x2
 """
 
 from __future__ import annotations
@@ -86,13 +93,28 @@ def main() -> None:
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Perfetto-loadable Chrome trace here")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--mesh", default=None, help="debug mesh DxM, e.g. 2x2")
     args = ap.parse_args()
 
     cfg = get_smoke_config(args.arch, args.quant)
     if cfg.family == "encoder":
         raise SystemExit("encoder-only arch: no decode phase")
 
-    params = init_params(cfg, args.seed, device=args.device)
+    params = plain_params = init_params(cfg, args.seed, device=args.device)
+    mesh = None
+    if args.mesh:
+        from repro_torch.dist.sharding import param_shardings, place
+        from repro_torch.launch.mesh import ensure_process_group, make_debug_mesh, parse_mesh
+
+        data, model = parse_mesh(args.mesh)
+        if ensure_process_group(data * model, args.device):
+            import atexit
+
+            import torch.distributed as dist
+
+            atexit.register(dist.destroy_process_group)
+        mesh = make_debug_mesh(data, model, device_type=args.device)
+        params = place(params, param_shardings(params, cfg, mesh))
     sampling = SamplingConfig(
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         seed=args.seed,
@@ -120,7 +142,7 @@ def main() -> None:
     engine = ServeEngine(
         cfg, params, batch_size=args.batch, max_len=args.max_len,
         prefill_chunk=args.chunk, sampling=sampling, spec=spec,
-        draft_params=draft_params, tracer=tracer, device=args.device,
+        draft_params=draft_params, tracer=tracer, device=args.device, mesh=mesh,
     )
 
     rng = np.random.default_rng(0)
@@ -166,7 +188,7 @@ def main() -> None:
         bad = 0
         for r in sorted(done, key=lambda r: r.rid):
             ref = sequential_greedy_decode(
-                cfg, params, prompts[r.rid], args.max_new, max_len=args.max_len
+                cfg, plain_params, prompts[r.rid], args.max_new, max_len=args.max_len
             )
             if r.output != ref:
                 bad += 1

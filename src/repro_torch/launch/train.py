@@ -24,7 +24,16 @@ resumes from the latest checkpoint in ``--ckpt-dir``.
                      reads it)
   --trace-out PATH   Chrome-trace/Perfetto JSON of the per-step spans
 
-Refused until ported: ``--mesh`` (ROADMAP queue 1 item 8).
+  --mesh DxM         debug mesh (data x model), e.g. --mesh 2x1: params per
+                     the TP rules, optimizer state per ZeRO-1, batches over
+                     "data".  D*M > 1 runs under
+                     torchrun --standalone --nproc-per-node D*M (gloo with
+                     --device cpu, NCCL on the card); --mesh 1x1 makes a
+                     world-size-1 group where none exists.
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch olmo-1b --smoke --steps 2 \
+      --batch 4 --seq 32 --device cpu --mesh 2x1
 """
 
 from __future__ import annotations
@@ -36,10 +45,6 @@ from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.obs import Tracer, set_tracer
 from repro_torch.quant.config import QUANT_FLAGS
 from repro_torch.train.trainer import Trainer, TrainerConfig
-
-_UNPORTED = {
-    "mesh": "distribution (ROADMAP queue 1 item 8)",
-}
 
 
 def main() -> None:
@@ -63,16 +68,22 @@ def main() -> None:
                     help="Prometheus dump at exit + per-step PATH.jsonl stream")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Perfetto-loadable Chrome trace here")
-    ap.add_argument("--mesh", default=None, help="not ported yet")
+    ap.add_argument("--mesh", default=None, help="debug mesh DxM, e.g. 2x1")
     args = ap.parse_args()
-    for name, item in _UNPORTED.items():
-        if getattr(args, name) is not None:
-            raise SystemExit(f"--{name.replace('_', '-')} is not ported yet: {item}")
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch, args.quant)
     if cfg.family == "encoder" and not cfg.embedding_inputs:
         raise SystemExit("encoder archs train on frame embeddings")
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    mesh, made_group = None, False
+    if args.mesh:
+        from repro_torch.launch.mesh import ensure_process_group, make_debug_mesh, parse_mesh
+
+        data, model = parse_mesh(args.mesh)
+        made_group = ensure_process_group(data * model, args.device)
+        mesh = make_debug_mesh(data, model, device_type=args.device)
+        print(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    lead = mesh is None or mesh.get_rank() == 0  # one rank reports
     tcfg = TrainerConfig(
         total_steps=args.steps,
         ckpt_every=args.ckpt_every,
@@ -82,14 +93,23 @@ def main() -> None:
         num_microbatches=args.microbatches,
         compress_grads=args.compress_grads,
         log_every=max(args.steps // 10, 1),
-        metrics_jsonl=args.metrics_out + ".jsonl" if args.metrics_out else None,
+        metrics_jsonl=args.metrics_out + ".jsonl" if args.metrics_out and lead else None,
     )
     tracer = None
     if args.trace_out:
         tracer = Tracer(process_name=f"train {args.arch}")
         set_tracer(tracer)
-    trainer = Trainer(cfg, shape, tcfg, token_file=args.token_file, tracer=tracer, device=args.device)
-    state = trainer.run()
+    trainer = Trainer(cfg, shape, tcfg, token_file=args.token_file, tracer=tracer, device=args.device,
+                      mesh=mesh)
+    try:
+        state = trainer.run()
+    finally:
+        if made_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    if not lead:
+        return
     if state["losses"]:
         print(f"done at step {state['step']} on {args.device}; "
               f"loss {state['losses'][0]:.4f} -> {state['losses'][-1]:.4f}")

@@ -36,6 +36,7 @@ from repro_torch.core.attention import naive_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.quant import dequantize_kv, get_quant, quantize_kv
 from .layers import apply_mrope, apply_rope, dense_init, rms_norm
+from .parallel import attention as _sharded, is_dtensor
 
 
 class KVCache(NamedTuple):
@@ -122,6 +123,8 @@ def attention_forward(
     positions: torch.Tensor,  # [B, S] (or [B, S, 3] for M-RoPE)
 ) -> torch.Tensor:
     """Full-sequence attention (training / prefill)."""
+    if is_dtensor(x):
+        return _sharded(lambda x, p, c, pos, _kv, _wp: attention_forward(x, p, c, pos), x, params, cfg, positions)
     b, s, _ = x.shape
     q, k, v = _project_qkv(x, params, cfg, positions)
     o = _impl_attention(q, k, v, cfg)
@@ -141,6 +144,10 @@ def prefill_attention(
     the chunk's queries over everything cached so far, with causality
     against the earlier chunks from ``q_offset=start``.  ``cache.lengths``
     is left for the caller to set once the whole prompt is in."""
+    if is_dtensor(x):
+        o = _sharded(lambda x, p, c, pos, kv, _wp: prefill_attention(x, p, c, kv, pos, start)[0],
+                     x, params, cfg, positions, cache)
+        return o, cache
     b, c, _ = x.shape
     capacity = cache.k.shape[1]
     # The reference's dynamic_update_slice would clamp the start and
@@ -226,6 +233,10 @@ def verify_attention(
     stay distinct, so no dropped row can land on a valid write (a clamp to
     ``max_len - 1`` would put several rows on one index).
     """
+    if is_dtensor(x):
+        o = _sharded(lambda x, p, c, pos, kv, wp: verify_attention(x, p, c, kv, pos, wp)[0],
+                     x, params, cfg, positions, cache, write_pos)
+        return o, cache
     b, s_new, _ = x.shape
     hd = cfg.resolved_head_dim
     max_len = cache.k.shape[1]

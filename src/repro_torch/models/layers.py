@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.quant import Quant
+from .parallel import is_dtensor, mlp as sharded_mlp
 
 _FP = Quant()  # no-op policy for call sites without a config
 
@@ -18,13 +19,27 @@ _FP = Quant()  # no-op policy for call sites without a config
 # jax.random's numbers cannot be reproduced; tests bridge the reference's
 # weights instead (repro_torch.bridge).
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device, which has
+    none: the initializers then give shapes and dtypes only
+    (``models.param_shapes``)."""
+
+    device = torch.device("meta")
+
+
+def randn(gen, shape) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype) -> torch.Tensor:
-    w = torch.randn((in_dim, out_dim), generator=gen, device=gen.device)
+    w = randn(gen, (in_dim, out_dim))
     return (w * (1.0 / np.sqrt(in_dim))).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype) -> torch.Tensor:
-    w = torch.randn((vocab, dim), generator=gen, device=gen.device)
+    w = randn(gen, (vocab, dim))
     return (w * 0.02).to(dtype)
 
 
@@ -137,6 +152,9 @@ def mlp_params(gen: torch.Generator, d: int, d_ff: int, mlp_type: str, dtype) ->
 def mlp_forward(
     x: torch.Tensor, params: dict, mlp_type: str, quant: Quant = _FP
 ) -> torch.Tensor:
+    if is_dtensor(x):
+        return sharded_mlp(lambda a, p: mlp_forward(a, p, mlp_type, quant), x, params)
+
     def dot(a, w):
         return quant.dot(a, w, "mlp")
 

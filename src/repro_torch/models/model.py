@@ -27,12 +27,16 @@ as the reference does; they run no flash kernel when serving.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional
 
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.collectives import constrain, replicate
 from repro_torch.quant import get_quant
 from .attention import (
     KVCache,
@@ -44,8 +48,9 @@ from .attention import (
     prefill_attention,
     verify_attention,
 )
-from .layers import apply_norm, embed_init, mlp_forward, mlp_params, norm_params
+from .layers import MetaGenerator, apply_norm, embed_init, mlp_forward, mlp_params, norm_params
 from .moe import moe_forward, moe_params
+from .parallel import embed as sharded_embed, is_dtensor, logits as sharded_logits, token_nll
 from .ssm import init_mamba_cache, mamba_decode, mamba_forward, mamba_params
 from .xlstm import (
     init_mlstm_state,
@@ -141,10 +146,14 @@ def _transformer_layer_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> 
 
 
 def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
-    """Random weights from a seeded ``torch.Generator`` on ``device``."""
+    """Random weights from a seeded ``torch.Generator`` on ``device``; on
+    the meta device, shapes and dtypes only."""
     _check_family(cfg, _FORWARD_FAMILIES)
     dtype = cfg.activation_dtype
-    gen = torch.Generator(device=device).manual_seed(seed)
+    if torch.device(device).type == "meta":
+        gen = MetaGenerator()
+    else:
+        gen = torch.Generator(device=device).manual_seed(seed)
     dev = gen.device
     params: dict[str, Any] = {}
     params["embed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)
@@ -174,9 +183,50 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     return params
 
 
+def param_shapes(cfg: ModelConfig) -> dict:
+    """Abstract params (meta tensors): no allocation; the dry-run's input."""
+    return init_params(cfg, 0, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+
+
+def _dist(params: dict):
+    """Where the params are DTensors, plain tensors (positions, masks, the
+    caller's tokens) take part in DTensor ops as replicated global values."""
+    return implicit_replication() if is_dtensor(params["embed"]) else contextlib.nullcontext()
+
+
+def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    table = params["embed"]
+    return sharded_embed(table, tokens) if is_dtensor(table) else table[tokens]
+
+
+def _inputs(params: dict, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
+    if embeds is None:
+        return _embed(params, tokens)
+    x = embeds.to(cfg.activation_dtype)
+    return replicate(x, params["embed"].device_mesh) if is_dtensor(params["embed"]) else x
+
+
+def _sp(x, cfg: ModelConfig):
+    """Sequence-parallel residual sharding (Megatron-SP), as the reference:
+    the layer carry, which remat checkpoints per layer, lives sharded over
+    (data x model); the islands all-gather it before attention and the MLP
+    and their partial sums reduce-scatter back.  Under dp_only the batch dim
+    spans every axis.  The identity without an ambient mesh or DTensors."""
+    if cfg.parallelism == "dp_only":
+        return constrain(x, ("pod", "data", "model"), None, None)
+    return constrain(x, ("pod", "data"), "model", None)
+
+
+def _like(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new`` (a plain global value) placed as the DTensor ``old`` is."""
+    if not isinstance(old, DTensor) or isinstance(new, DTensor):
+        return new
+    return replicate(new, old.device_mesh).redistribute(old.device_mesh, old.placements)
 
 
 def _default_positions(cfg: ModelConfig, batch: int, seq: int, device, offset: int = 0):
@@ -193,7 +243,8 @@ def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 def _logits(x, params: dict, cfg: ModelConfig, softcap: bool = True) -> torch.Tensor:
     x = apply_norm(x, params["final_norm"], cfg.norm_type)
-    logits = x @ _head(params, cfg)
+    head = _head(params, cfg)
+    logits = sharded_logits(x, head) if is_dtensor(head) else x @ head
     if softcap and cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -215,13 +266,15 @@ def _mlp(h, layer, cfg: ModelConfig, dropless: bool = False):
 def _transformer_block(x, layer, cfg: ModelConfig, positions, kv=None, start=0):
     """One transformer block.  With ``kv`` (one layer's KVCache) attention
     runs the chunked-prefill path, writing K/V at [start, start+S), and the
-    cache is returned beside the activations."""
+    cache is returned beside the activations.  The carry is constrained
+    (``_sp``) where the reference constrains it."""
+    x = _sp(x, cfg)
     h = apply_norm(x, layer["attn_norm"], cfg.norm_type)
     if kv is None:
         a = attention_forward(h, layer["attn"], cfg, positions)
     else:
         a, kv = prefill_attention(h, layer["attn"], cfg, kv, positions, start)
-    out = _mlp(x + a, layer, cfg)
+    out = _sp(_mlp(_sp(x + a, cfg), layer, cfg), cfg)
     return out if kv is None else (out, kv)
 
 
@@ -249,7 +302,12 @@ def forward(
 ) -> torch.Tensor:
     """Full-sequence forward -> logits [B, S, V]."""
     _check_family(cfg, _FORWARD_FAMILIES)
-    x = embeds.to(cfg.activation_dtype) if embeds is not None else params["embed"][tokens]
+    with _dist(params):
+        return _forward(params, cfg, tokens, embeds, positions)
+
+
+def _forward(params, cfg: ModelConfig, tokens, embeds, positions) -> torch.Tensor:
+    x = _inputs(params, cfg, tokens, embeds)
     b, s = x.shape[:2]
     if positions is None:
         positions = _default_positions(cfg, b, s, x.device)
@@ -269,14 +327,22 @@ def forward(
 def lm_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Next-token (or frame-label) cross entropy in fp32; labels < 0 are
     masked out of the mean."""
+    with _dist(params):
+        return _lm_loss(params, cfg, batch)
+
+
+def _lm_loss(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     logits = forward(
         params, cfg,
         tokens=batch.get("tokens"), embeds=batch.get("embeds"), positions=batch.get("positions"),
     )
     labels = batch["labels"]
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    if is_dtensor(logits):
+        nll = token_nll(logits, labels)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
-    nll = -torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
@@ -349,7 +415,12 @@ def decode_step(
     the new recurrent states (``cache``'s own states are left as they
     were)."""
     _check_family(cfg)
-    x = params["embed"][tokens]
+    with _dist(params):
+        return _decode_step(params, cfg, tokens, cache, position)
+
+
+def _decode_step(params: dict, cfg: ModelConfig, tokens, cache, position):
+    x = _embed(params, tokens)
     b = x.shape[0]
     pos = torch.as_tensor(position, dtype=torch.int32, device=x.device)
     pos = pos.reshape(-1, 1).expand(b, 1)
@@ -382,7 +453,7 @@ def decode_step(
 def _prefill_chunk(params: dict, cfg: ModelConfig, tokens_c, cache: KVCache, start: int):
     """One prefill chunk through the stack: each layer writes its K/V into
     the cache and flash-attends over [0, start+C)."""
-    x = params["embed"][tokens_c]
+    x = _embed(params, tokens_c)
     b, c = tokens_c.shape
     positions = _default_positions(cfg, b, c, x.device, offset=start)
     for i, layer in enumerate(_unstack(params["layers"], cfg.num_layers)):
@@ -435,6 +506,11 @@ def prefill_step(
     as the reference does.
     """
     _check_family(cfg)
+    with _dist(params):
+        return _prefill_step(params, cfg, tokens, cache, lengths, chunk_size)
+
+
+def _prefill_step(params, cfg: ModelConfig, tokens, cache, lengths, chunk_size):
     b, s = tokens.shape
     if cfg.family in _RECURRENT:
         lengths = torch.as_tensor(lengths, dtype=torch.int32, device=tokens.device).reshape(b)
@@ -446,7 +522,8 @@ def prefill_step(
     ]
     out = logits[0] if len(logits) == 1 else torch.cat(logits, dim=1)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=tokens.device).reshape(b)
-    return out, cache._replace(lengths=lengths[None, :].expand(cfg.num_layers, b).clone())
+    new = lengths[None, :].expand(cfg.num_layers, b).clone()
+    return out, cache._replace(lengths=_like(new, cache.lengths))
 
 
 def _describe(cache) -> str:
@@ -474,8 +551,31 @@ def insert_cache(cache, prefix, slot: int):
     if not ok or not 0 <= slot < cache[0].shape[1]:
         raise ValueError(f"cannot insert {_describe(prefix)} into slot {slot} of {_describe(cache)}")
     for dst, src in zip(cache, prefix):
-        dst[(slice(None), slice(slot, slot + 1)) + tuple(slice(0, n) for n in src.shape[2:])] = src
+        if isinstance(dst, DTensor):
+            _insert_local(dst, src, slot)
+        else:
+            dst[(slice(None), slice(slot, slot + 1)) + tuple(slice(0, n) for n in src.shape[2:])] = src
     return cache
+
+
+def _insert_local(dst: DTensor, src, slot: int) -> None:
+    """``insert_cache`` of one DTensor leaf, on local shards: the rank
+    holding ``slot`` of a batch dim sharded over the data axes writes its
+    shard of the prefix (placed as the cache is: a batch of 1 is never
+    sharded, other dims alike)."""
+    mesh = dst.device_mesh
+    local = dst.to_local()
+    lo, n = 0, dst.shape[1]
+    for i, p in enumerate(dst.placements):
+        if p.is_shard(1):
+            n //= mesh.size(i)
+            lo += mesh.get_local_rank(i) * n
+    if not lo <= slot < lo + n:
+        return
+    if not isinstance(src, DTensor):
+        src = replicate(src, mesh)
+    src_l = src.redistribute(mesh, [Replicate() if p.is_shard(1) else p for p in dst.placements]).to_local()
+    local[(slice(None), slice(slot - lo, slot - lo + 1)) + tuple(slice(0, k) for k in src_l.shape[2:])] = src_l
 
 
 # ---------------------------------------------------------------------------
@@ -505,7 +605,12 @@ def verify_step(
             f"verify_step requires a KV cache to roll back; family "
             f"{cfg.family!r} has none"
         )
-    x = params["embed"][tokens]
+    with _dist(params):
+        return _verify_step(params, cfg, tokens, cache, positions)
+
+
+def _verify_step(params: dict, cfg: ModelConfig, tokens, cache, positions):
+    x = _embed(params, tokens)
     b, s = tokens.shape
     write_pos = torch.as_tensor(positions, dtype=torch.int32, device=x.device).reshape(b)
     pos = write_pos[:, None] + torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
@@ -538,4 +643,4 @@ def rollback_cache(cache, new_lengths):
         )
     n_layers, b = cache.lengths.shape
     new = torch.as_tensor(new_lengths, dtype=torch.int32, device=cache.lengths.device).reshape(b)
-    return cache._replace(lengths=new[None, :].expand(n_layers, b).clone())
+    return cache._replace(lengths=_like(new[None, :].expand(n_layers, b).clone(), cache.lengths))

@@ -1,10 +1,12 @@
 """Mixture-of-Experts layer: top-k token-choice routing with capacity
-(counterpart of ``repro.models.moe``, its single-shard branch).
+(counterpart of ``repro.models.moe``).
 
-The reference runs the block under shard_map with the experts split over a
-"model" mesh axis when there is one; without a mesh it runs the block once
-with every expert local, and that is the path ported here (expert
-parallelism waits for ROADMAP queue 1 item 8).
+Without a mesh the block runs once with every expert local.  Under an
+ambient mesh with a "model" axis it runs expert-parallel, as the
+reference's shard_map branch: tokens sharded over the data axes and
+replicated over "model", the expert banks split over "model", each rank
+routing its tokens to its local experts only, and the partial outputs
+summed over "model" (``models.parallel.moe``).
 
 Dispatch, as in the reference:
 
@@ -41,8 +43,10 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.collectives import _ambient_axis_names
 from repro_torch.quant import get_quant
 from .layers import dense_init, mlp_forward
+from .parallel import is_dtensor, moe as sharded_moe
 
 # Dispatches since the last ``reset_counts``, by mode, and the (token,
 # expert) copies they routed (read by chip_smoke.py and
@@ -188,7 +192,17 @@ def moe_forward(x: torch.Tensor, params: dict, cfg: ModelConfig, dropless: bool 
     token pool, so no copy is dropped and each token's routing is
     independent of its lane-mates.  Train and prefill keep the
     capacity-bounded semantics.
+
+    Under an ambient mesh with a "model" axis (1 x 1 included) the block
+    runs expert-parallel, as the reference's shard_map branch: each model
+    rank routes its data shard's tokens over its ``E / model`` experts and
+    the partial outputs sum over "model" (``models.parallel.moe``).
     """
+    if "model" in _ambient_axis_names() and is_dtensor(x):
+        def block(x_l, router, gate, up, down, offset):
+            return _moe_block(x_l, router, gate, up, down, cfg, expert_offset=offset, dropless=dropless)
+
+        return sharded_moe(block, x, params, cfg).to(x.dtype)
     return _moe_block(
         x, params["router"], params["gate"], params["up"], params["down"], cfg, dropless=dropless
     ).to(x.dtype)

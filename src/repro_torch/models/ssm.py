@@ -32,7 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.quant import get_quant
-from .layers import dense_init, rms_norm
+from .layers import dense_init, randn, rms_norm
+from .parallel import is_dtensor, replicated
 
 
 class MambaCache(NamedTuple):
@@ -54,7 +55,7 @@ def mamba_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     d_inner, nheads, conv_ch = _dims(cfg)
     dev = gen.device
     in_dim = 2 * d_inner + 2 * ssm.state_dim + nheads  # z, x, B, C, dt
-    conv_w = torch.randn((ssm.conv_width, conv_ch), generator=gen, device=dev) * 0.1
+    conv_w = randn(gen, (ssm.conv_width, conv_ch)) * 0.1
     return {
         "in_proj": dense_init(gen, d, in_dim, dtype),
         "conv_w": conv_w.to(dtype),
@@ -138,6 +139,8 @@ def _ssd_chunked(
 
 def mamba_forward(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence Mamba2 block. x: [B, S, d_model]."""
+    if is_dtensor(x):
+        return replicated(lambda a, p, _s: mamba_forward(a, p, cfg), x, params)
     ssm = cfg.ssm
     d_inner, nheads, _ = _dims(cfg)
     b, s, _ = x.shape
@@ -188,6 +191,8 @@ def mamba_decode(
 ) -> tuple[torch.Tensor, MambaCache]:
     """Single-token recurrent step -> (y [B, 1, d_model], new cache).  The
     new cache is made of new tensors; ``cache`` is left as it was."""
+    if is_dtensor(x):
+        return replicated(lambda a, p, st: mamba_decode(a, p, cfg, st), x, params, cache)
     ssm = cfg.ssm
     d_inner, nheads, _ = _dims(cfg)
     b = x.shape[0]

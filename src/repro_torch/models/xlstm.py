@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.quant import get_quant
 from .layers import dense_init, rms_norm
+from .parallel import is_dtensor, replicated
 
 
 class MLSTMState(NamedTuple):
@@ -96,6 +97,8 @@ def _mlstm_out(h, params, cfg: ModelConfig, dtype):
 
 
 def mlstm_forward(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
+    if is_dtensor(x):
+        return replicated(lambda a, p, _s: mlstm_forward(a, p, cfg), x, params)
     inputs = _mlstm_inputs(x, params, cfg)
     state = init_mlstm_state(cfg, x.shape[0], x.device)
     p = cfg.d_model // cfg.num_heads
@@ -107,6 +110,8 @@ def mlstm_forward(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tens
 
 
 def mlstm_decode(x, params, cfg: ModelConfig, state: MLSTMState):
+    if is_dtensor(x):
+        return replicated(lambda a, p, st: mlstm_decode(a, p, cfg, st), x, params, state)
     inputs = _mlstm_inputs(x, params, cfg)
     new_state, h = _mlstm_step(state, tuple(a[:, 0] for a in inputs), cfg.d_model // cfg.num_heads)
     return _mlstm_out(h[:, None], params, cfg, x.dtype), new_state
@@ -157,6 +162,8 @@ def _slstm_step(params, state: SLSTMState, x_t: torch.Tensor, quant):
 
 
 def slstm_forward(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
+    if is_dtensor(x):
+        return replicated(lambda a, p, _s: slstm_forward(a, p, cfg), x, params)
     state = init_slstm_state(cfg, x.shape[0], x.device)
     quant = get_quant(cfg)
     hs = []
@@ -167,6 +174,8 @@ def slstm_forward(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tens
 
 
 def slstm_decode(x, params, cfg: ModelConfig, state: SLSTMState):
+    if is_dtensor(x):
+        return replicated(lambda a, p, st: slstm_decode(a, p, cfg, st), x, params, state)
     new_state, h = _slstm_step(params, state, x[:, 0], get_quant(cfg))
     return rms_norm(h[:, None, :].to(x.dtype), params["norm_scale"]), new_state
 

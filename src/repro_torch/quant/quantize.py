@@ -37,7 +37,9 @@ _EPS = 1e-20
 # torch._int_mm on CUDA: rows > 16, contraction and output widths % 8 == 0.
 # On the H100 cuBLASLt also refused 17 rows at contraction width 64
 # (CUBLAS_STATUS_NOT_SUPPORTED), so rows are padded to a multiple of 32
-# (tests/test_torch_cuda.py runs every row count 1-40 at widths 16-96).
+# (tests/test_torch_cuda.py runs every row count 1-40 at widths 16-96), and
+# both widths are padded with zeros to a multiple of 8 (xlstm's [768, 4]
+# gate projections).
 INT_MM_ROW_MULTIPLE = 32
 INT_MM_WIDTH_MULTIPLE = 8
 
@@ -103,21 +105,34 @@ def _quantize_weight(w: torch.Tensor, per_channel: bool, experts: bool = False):
     return _round_clip(wf, scale), scale
 
 
+def pad_widths(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``a [m, k]`` and ``b [k, n]`` with k and n padded with zeros to
+    multiples of ``INT_MM_WIDTH_MULTIPLE``: the zero columns of ``a`` meet
+    zero rows of ``b``, so ``(a' @ b')[:, :n]`` equals ``a @ b`` exactly in
+    int32."""
+    (m, k), n = a.shape, b.shape[1]
+    kp = -(-k // INT_MM_WIDTH_MULTIPLE) * INT_MM_WIDTH_MULTIPLE
+    np_ = -(-n // INT_MM_WIDTH_MULTIPLE) * INT_MM_WIDTH_MULTIPLE
+    if kp != k:
+        a = torch.cat([a, a.new_zeros((m, kp - k))], dim=1)
+        b = torch.cat([b, b.new_zeros((kp - k, n))])
+    if np_ != n:
+        b = torch.cat([b, b.new_zeros((kp, np_ - n))], dim=1)
+    return a, b
+
+
 def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int32 product of int8 ``a [m, k]`` and ``b [k, n]``."""
     global int_mm_calls
     if not a.is_cuda:
         return a.to(torch.int32) @ b.to(torch.int32)
-    (m, k), n = a.shape, b.shape[1]
-    if k % INT_MM_WIDTH_MULTIPLE or n % INT_MM_WIDTH_MULTIPLE:
-        raise ValueError(
-            f"torch._int_mm needs widths in multiples of {INT_MM_WIDTH_MULTIPLE}: got k={k}, n={n}"
-        )
+    m, n = a.shape[0], b.shape[1]
+    a, b = pad_widths(a, b)
     rows = max(1, -(-m // INT_MM_ROW_MULTIPLE)) * INT_MM_ROW_MULTIPLE
     if rows != m:
-        a = torch.cat([a, a.new_zeros((rows - m, k))])
+        a = torch.cat([a, a.new_zeros((rows - m, a.shape[1]))])
     int_mm_calls += 1
-    return torch._int_mm(a.contiguous(), b.contiguous())[:m]
+    return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
 
 
 def int8_accumulate(

@@ -37,9 +37,13 @@ slot's lane.  The telemetry reads nothing from the device beyond the reads
 the engine makes anyway (the sampled tokens).
 
 Runs eagerly on ``device`` (the card unless the caller asks for the CPU).
-Not ported yet (ROADMAP queue 1): the mesh, and per-bucket compiled
-executables (``compile_counts`` and the ``serve_jit_executables`` gauge),
-whose counterpart is one CUDA graph per bucket.
+With ``mesh`` (a ``DeviceMesh`` over ("data", "model"); the params placed by
+the caller, ``repro_torch.dist.sharding.param_shardings``) the caches are
+placed per ``cache_shardings`` and every phase runs under the ambient mesh.
+Not ported yet (ROADMAP queue 1): speculative decoding under a mesh, and
+per-bucket compiled executables (``compile_counts`` and the
+``serve_jit_executables`` gauge), whose counterpart is one CUDA graph per
+bucket.
 """
 
 from __future__ import annotations
@@ -53,6 +57,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.collectives import set_mesh
+from repro_torch.dist.sharding import cache_shardings, place
 from repro_torch.models.model import decode_step, init_cache, insert_cache, prefill_step
 from repro_torch.obs import MFUMeter, Registry, get_tracer
 from .serve_step import SamplingConfig, make_decode_step, sample_logits
@@ -120,10 +126,13 @@ class ServeEngine:
         registry: Optional[Registry] = None,  # repro_torch.obs metrics sink
         tracer=None,  # repro_torch.obs Tracer (default: ambient, usually Null)
         device="cuda",
+        mesh=None,  # torch DeviceMesh over ("data", "model"); None: one device
     ):
         if cfg.family == "encoder":
             raise ValueError("encoder archs have no decode phase")
-        self.cfg, self.params = cfg, params
+        if mesh is not None and spec is not None:
+            raise ValueError("speculative decoding under a mesh is not ported yet")
+        self.cfg, self.params, self.mesh = cfg, params, mesh
         self.device = torch.device(device)
         self.batch, self.max_len = batch_size, max_len
         self.prefill_chunk = prefill_chunk
@@ -263,7 +272,7 @@ class ServeEngine:
             "prefill", cat="serve", tid=slot,
             args={"rid": req.rid, "len": plen, "bucket": bucket},
         ):
-            prefix = init_cache(self.cfg, 1, bucket, self.device)
+            prefix = self._new_cache(1, bucket)
             logits, prefix = prefill_step(
                 self.params, self.cfg, torch.as_tensor(toks, device=self.device),
                 prefix, [plen], chunk_size=self.prefill_chunk,
@@ -307,14 +316,24 @@ class ServeEngine:
                             tid=slot, args={"rid": req.rid, "tokens": n})
             tr.instant("retire", tid=slot, args={"rid": req.rid, "tokens": n})
 
+    def _new_cache(self, batch: int, max_len: int):
+        cache = init_cache(self.cfg, batch, max_len, self.device)
+        if self.mesh is None:
+            return cache
+        return place(cache, cache_shardings(cache, self.cfg, self.mesh))
+
     @torch.no_grad()
     def step(self) -> bool:
         """Back-fill free slots, then advance every live slot one token.
 
         Returns True while work remains (live slots or queued requests).
         """
+        with set_mesh(self.mesh):
+            return self._step()
+
+    def _step(self) -> bool:
         if self.cache is None:
-            self.cache = init_cache(self.cfg, self.batch, self.max_len, self.device)
+            self.cache = self._new_cache(self.batch, self.max_len)
         # Insert phase: fill every free slot from the queue.  A request
         # that completes at prefill (max_new_tokens == 1 or immediate EOS)
         # retires without occupying the slot.

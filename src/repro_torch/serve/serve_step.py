@@ -14,7 +14,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import decode_step
+from repro_torch.dist.collectives import full
+from repro_torch.models.model import decode_step, forward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +40,9 @@ def sample_logits(
     generator: Optional[torch.Generator],
     scfg: SamplingConfig,
 ) -> torch.Tensor:
-    """Sample token ids (int32) from logits under the configured policy."""
-    logits = logits.float()
+    """Sample token ids (int32) from logits under the configured policy
+    (a DTensor's full logits: sampling runs on every rank alike)."""
+    logits = full(logits).float()
     if scfg.greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     logits = logits / scfg.temperature
@@ -59,6 +61,21 @@ def sample_logits(
     flat = probs.reshape(-1, probs.shape[-1])
     out = torch.multinomial(flat, 1, generator=generator)
     return out.reshape(probs.shape[:-1]).to(torch.int32)
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """Prefill step closure ``(params, batch) -> last-position logits
+    [B, V]`` (the dry-run's prefill cell: the whole prompt through
+    ``forward``; serving samples from the last position)."""
+
+    def prefill_step(params, batch):
+        logits = forward(
+            params, cfg,
+            tokens=batch.get("tokens"), embeds=batch.get("embeds"), positions=batch.get("positions"),
+        )
+        return logits[:, -1, :]
+
+    return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, *, sampling: Optional[SamplingConfig] = None):

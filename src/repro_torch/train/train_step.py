@@ -7,6 +7,11 @@ int8 gradient compression with error feedback.
 (compressed: ``(params, opt_state, batch, residual) -> (params, opt_state,
 residual, metrics)``) returns new params and state and leaves its inputs as
 they were.
+
+With DTensor params (a mesh) the gradients take their params' placements
+(a partial sum over the data axes is reduced there), and the new params
+and optimizer state keep the placements of the old, as the reference's
+jit ``out_shardings`` do.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import lm_loss
@@ -27,6 +33,18 @@ def _with_leaves(params: Any, leaves: list) -> Any:
     return tree_map(lambda _: next(it), params)
 
 
+def _placed_as(new: Any, old: Any) -> Any:
+    """``new``'s DTensor leaves redistributed to the placements of the
+    matching leaves of ``old`` (dicts and NamedTuples)."""
+    if isinstance(new, dict):
+        return {k: _placed_as(v, old[k]) for k, v in new.items()}
+    if isinstance(new, tuple):
+        return type(new)(*(_placed_as(n, o) for n, o in zip(new, old)))
+    if isinstance(new, DTensor) and isinstance(old, DTensor) and new.placements != old.placements:
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
+
+
 def value_and_grad(cfg: ModelConfig, params: Any, batch: dict) -> tuple[torch.Tensor, Any]:
     """``lm_loss`` and its gradient, a dict shaped like ``params`` whose
     leaves are in the params' dtypes."""
@@ -36,7 +54,8 @@ def value_and_grad(cfg: ModelConfig, params: Any, batch: dict) -> tuple[torch.Te
         # A leaf the loss does not use (the token embedding of an arch fed
         # frame embeddings) gets zeros, as jax.grad gives it.
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-    return loss.detach(), _with_leaves(params, list(grads))
+    grads = [_placed_as(g, p) for g, p in zip(grads, leaves)]
+    return loss.detach(), _with_leaves(params, grads)
 
 
 def make_train_step(
@@ -69,6 +88,7 @@ def make_train_step(
 
     def update(params, opt_state, loss, grads):
         new_params, new_opt = optimizer.update(grads, opt_state, params)
+        new_params, new_opt = _placed_as(new_params, params), _placed_as(new_opt, opt_state)
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
         return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
 

@@ -10,8 +10,11 @@ per-step MFU against the paper's FSA array) and, when
 reference's keys; ``launch/scrape_log.py`` reads them back).  Each step is a
 ``train_step`` span on the ambient tracer.  With ``compress_grads`` the
 gradients go through int8 with error feedback and the residual is part of
-the state and of the checkpoint.  Not yet ported: the mesh (ROADMAP queue 1
-item 8).
+the state and of the checkpoint.  With ``mesh`` (a ``DeviceMesh`` over
+("data", "model")) the params and the residual are placed per the TP rules
+(``repro_torch.dist.sharding``), the optimizer state per ZeRO-1 and each
+batch over the data axes, and every step runs under the ambient mesh;
+checkpoints hold full tensors.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data import DataConfig, make_source
+from repro_torch.dist.collectives import full, set_mesh
 from repro_torch.dist.fault import PreemptionHandler, StepWatchdog
+from repro_torch.dist.sharding import batch_pspec, param_shardings, place, zero1_shardings
 from repro_torch.models import init_params
 from repro_torch.obs import MFUMeter, Registry, get_tracer
 from repro_torch.optim import make_optimizer
@@ -67,8 +72,10 @@ class Trainer:
         registry: Optional[Registry] = None,
         tracer=None,  # repro_torch.obs Tracer (default: ambient, usually Null)
         device="cuda",
+        mesh=None,  # torch DeviceMesh over ("data", "model"); None: one device
     ):
         self.cfg, self.shape, self.tcfg = cfg, shape, tcfg
+        self.mesh = mesh
         self.device = torch.device(device)
         self.data = make_source(cfg, shape, DataConfig(seed=tcfg.seed), token_file)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
@@ -94,21 +101,46 @@ class Trainer:
 
     # -- state ------------------------------------------------------------
 
+    def _shard_state(self, state: dict) -> dict:
+        """Place params (and the compression residual) per the TP rules and
+        the optimizer state per ZeRO-1 when a mesh is given."""
+        if self.mesh is None:
+            return state
+        sh = param_shardings(state["params"], self.cfg, self.mesh)
+        out = dict(state)
+        out["params"] = place(state["params"], sh)
+        out["opt"] = place(state["opt"], zero1_shardings(state["opt"], self.cfg, self.mesh))
+        if "residual" in state:
+            out["residual"] = place(state["residual"], sh)
+        return out
+
     def init_state(self) -> dict:
         params = init_params(self.cfg, self.tcfg.seed, self.device)
         state = {"params": params, "opt": self.optimizer.init(params), "step": 0}
         if self.tcfg.compress_grads:
             state["residual"] = init_residual(params)
-        return state
+        return self._shard_state(state)
 
     def restore_or_init(self) -> dict:
         latest = self.ckpt.latest_step()
         if latest is None:
             return self.init_state()
         template = {k: v for k, v in self.init_state().items() if k != "step"}
-        restored = self.ckpt.restore(latest, template)
+        restored = self.ckpt.restore(latest, _full_tree(template))
         restored["step"] = latest
-        return restored
+        return self._shard_state(restored)
+
+    def _batch(self, step: int) -> dict:
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in self.data.batch(step).items()}
+        return batch if self.mesh is None else place(batch, batch_pspec(batch, self.mesh, self.cfg))
+
+    def _save(self, step: int, tree: dict, wait: bool = True) -> None:
+        """Checkpoint full tensors (a collective gather under a mesh); one
+        rank writes."""
+        tree = _full_tree(tree)
+        if self.mesh is not None and self.mesh.get_rank() != 0:
+            return
+        self.ckpt.save(step, tree) if wait else self.ckpt.save_async(step, tree)
 
     # -- loop --------------------------------------------------------------
 
@@ -123,12 +155,12 @@ class Trainer:
         with open(jsonl_path, "a") if jsonl_path else contextlib.nullcontext() as jsonl:
             while state["step"] < self.tcfg.total_steps:
                 if self.preempt.requested:
-                    self.ckpt.save(state["step"], {k: state[k] for k in ckpt_keys})
+                    self._save(state["step"], {k: state[k] for k in ckpt_keys})
                     break
                 step = state["step"]
-                batch = {k: torch.as_tensor(v, device=self.device) for k, v in self.data.batch(step).items()}
+                batch = self._batch(step)
                 self.watchdog.start_step()
-                with self.tracer.span("train_step", cat="train", tid=0, args={"step": step}):
+                with set_mesh(self.mesh), self.tracer.span("train_step", cat="train", tid=0, args={"step": step}):
                     if self.tcfg.compress_grads:
                         params, opt, residual, metrics = self.step_fn(
                             state["params"], state["opt"], batch, state["residual"]
@@ -137,10 +169,10 @@ class Trainer:
                     else:
                         params, opt, metrics = self.step_fn(state["params"], state["opt"], batch)
                         new_state = {"params": params, "opt": opt, "step": step + 1}
-                    loss = metrics["loss"].item()  # waits for the step, as block_until_ready
+                    loss = full(metrics["loss"]).item()  # waits for the step, as block_until_ready
                 dur = self.watchdog.end_step()
                 state = new_state
-                gnorm = metrics["grad_norm"].item()
+                gnorm = full(metrics["grad_norm"]).item()
                 losses.append(loss)
                 self._steps_total.inc()
                 self._tokens_total.inc(tokens_per_batch)
@@ -166,7 +198,16 @@ class Trainer:
                 if (step + 1) % self.tcfg.log_every == 0:
                     print(f"step {step + 1} loss {loss:.4f} gnorm {gnorm:.3f} {dur * 1e3:.0f} ms")
                 if (step + 1) % self.tcfg.ckpt_every == 0:
-                    self.ckpt.save_async(step + 1, {k: state[k] for k in ckpt_keys})
+                    self._save(step + 1, {k: state[k] for k in ckpt_keys}, wait=False)
         self.ckpt.wait()
         state["losses"] = losses
         return state
+
+
+def _full_tree(tree):
+    """A state tree with its DTensor leaves gathered to full tensors."""
+    if isinstance(tree, dict):
+        return {k: _full_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_full_tree(v) for v in tree))
+    return full(tree)

@@ -574,11 +574,17 @@ def test_int8_dot_takes_every_row_count_at_small_widths(cuda_device, width):
 
 
 def test_int8_product_refuses_a_width_int_mm_cannot_take(cuda_device):
-    from repro_torch.quant import int8_dot
+    """Widths that are not multiples of 8 (xlstm's [768, 4] gates, an odd
+    contraction) are padded with zeros, not refused: the product equals the
+    CPU's bit for bit."""
+    from repro_torch.quant import int8_dot, quantize
 
-    x, w = torch.randn((32, 12), device=cuda_device), torch.randn((12, 16), device=cuda_device)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        int8_dot(x, w)
+    gen = torch.Generator().manual_seed(12)
+    for (m, k, n) in ((32, 12, 16), (5, 768, 4), (40, 13, 7)):
+        x, w = torch.randn((m, k), generator=gen), torch.randn((k, n), generator=gen)
+        before = quantize.int_mm_calls
+        assert torch.equal(int8_dot(x.to(cuda_device), w.to(cuda_device)).cpu(), int8_dot(x, w))
+        assert quantize.int_mm_calls - before == 1
 
 
 @pytest.mark.parametrize("quant", [None, "int8"])

@@ -154,3 +154,19 @@ def test_fig12_inputs_bit_equal_to_the_jnp_function(num_segments):
     ours = pwl_exp2_cuda(torch.from_numpy(x), num_segments=num_segments).numpy()
     ref = np.asarray(jax_pwl_exp2(jnp.asarray(x), num_segments))
     np.testing.assert_array_equal(ours.view(np.int32), ref.view(np.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ops_and_ref_entry_points_equal_the_reference(dtype):
+    """``repro_torch.kernels.pwl_exp2.{pwl_exp2, pwl_exp2_reference}``, the
+    counterparts of the reference package's exports, are bit-equal on the
+    CPU to ``repro.kernels.pwl_exp2.pwl_exp2_reference``."""
+    from repro.kernels.pwl_exp2 import pwl_exp2_reference as jax_reference
+    from repro_torch.kernels.pwl_exp2 import pwl_exp2, pwl_exp2_reference
+
+    x = -np.random.default_rng(5).uniform(0.0, 30.0, (64, 37)).astype(np.float32)
+    want = np.asarray(jax_reference(jnp.asarray(x, dtype), 8).astype(jnp.float32))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    for fn in (pwl_exp2, lambda t, num_segments: pwl_exp2_reference(t, num_segments)):
+        got = fn(tx, num_segments=8).float().numpy()
+        np.testing.assert_array_equal(got, want)

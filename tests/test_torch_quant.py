@@ -187,3 +187,17 @@ def test_tree_bytes_of_the_int8_cache():
     assert tq.tree_bytes(qcache) == jq.tree_bytes(jm.init_cache(jcfg, 2, 16))
     d, lengths = cfg.resolved_head_dim, qcache.lengths.numel() * 4
     assert (tq.tree_bytes(qcache) - lengths) * 4 * d == (tq.tree_bytes(fcache) - lengths) * (d + 4)
+
+
+@pytest.mark.parametrize("m, k, n", [(7, 768, 4), (33, 13, 16), (5, 21, 3)])
+def test_int_mm_width_padding_is_exact(m, k, n):
+    """The zero padding ``_int_mm`` gives widths that are not multiples of 8
+    on the card leaves the int32 product unchanged, bit for bit: xlstm's
+    [768, 4] gate projections, an odd contraction, both widths odd."""
+    gen = torch.Generator().manual_seed(m * k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    pa, pb = tqz.pad_widths(a, b)
+    assert pa.shape[1] % tqz.INT_MM_WIDTH_MULTIPLE == 0 and pb.shape[1] % tqz.INT_MM_WIDTH_MULTIPLE == 0
+    padded = (pa.to(torch.int32) @ pb.to(torch.int32))[:, :n]
+    assert torch.equal(padded, a.to(torch.int32) @ b.to(torch.int32))

@@ -348,6 +348,12 @@ def test_launcher_trains_and_refuses_unported_flags(monkeypatch, capsys, tmp_pat
         monkeypatch.setattr("sys.argv", ["train", "--arch", arch] + argv[3:-1] + [str(tmp_path / arch)])
         launcher.main()
         assert "done at step 2 on cpu" in capsys.readouterr().out
+    # --mesh is ported: a 1 x 1 mesh trains in this process (a world-size-1
+    # gloo group, destroyed at the end; the losses are the meshless run's:
+    # tests/test_torch_dist.py), a larger one needs torchrun's ranks.
+    monkeypatch.setattr("sys.argv", argv[:-1] + [str(tmp_path / "ck11"), "--mesh", "1x1"])
+    launcher.main()
+    assert "done at step 2 on cpu" in capsys.readouterr().out
     monkeypatch.setattr("sys.argv", argv + ["--mesh", "2x1"])
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="runs under torchrun"):
         launcher.main()
