@@ -184,14 +184,34 @@ non-zero):
                of each kernel, step times beside; qwen3-moe-235b-a22b at
                depth 4 under none served under the mesh (the expert-parallel
                branch at model = 1): tokens, MoE calls and launches equal to
-               the moe phase's.  Then, the NCCL group destroyed, the
-               dry-run on fake groups: lower_cell("olmo-1b", 4 x 2048, 1 x 1)
+               the moe phase's.  (a) The spec phase's self-draft run
+               (unchunked) under the mesh, the draft sharing the placed
+               params and placing its own cache: tokens, acceptance and
+               sm90 launches equal to the no-mesh run's, TTFT/TPOT (per
+               request and amortized)/tokens/s/peak beside it.  (b)
+               compressed_pmean over the "data" group on the gradient of
+               the first training step (its loss gated equal to that
+               step's): average and new residual bit-equal to the int8
+               round trip with n = 1, and its CUDA-event time.  (c)
+               pipelined_apply over the 16 stacked layers, one
+               _transformer_block a stage, on a [4, 2048] input: the mesh
+               has no "pod" axis (one rank), so the sequential schedule,
+               bit-equal to the layer loop with 16 sm90 launches; the
+               pipelined schedule runs only in gloo ranks on the CPU.  (e)
+               The serve and spec phases' and this phase's engines print
+               compile_counts() and serve a second wave in the same
+               buckets, which must leave them unchanged.  Then, the NCCL
+               group destroyed, the dry-run on fake groups: lower_cell("olmo-1b", 4 x 2048, 1 x 1)
                (predicted t_compute, t_memory and bytes per device beside the
                train phase's step time and peak), and run_cell("olmo-1b",
                "train_4k") on the 16 x 16 production mesh.  The recurrent
                phase also serves zamba2-1.2b and xlstm-125m under int8 (one
                request each, _int_mm calls gated non-zero: the width
                padding of fault F1's repair).  The phase prints its seconds.
+
+(d) A JitCompileWatcher (repro_torch.obs) counts from the start the kernel
+libraries nvcc builds; the ``[builds]`` line prints them by phase, and no
+phase after the build phase may build one.
 
 The last lines are the card's name and power limit, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -233,7 +253,9 @@ from repro_torch.core.pwl_exp2 import LOG2_E, fp16_negative_normals, pwl_error_s
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd  # noqa: E402
-from repro_torch.dist import param_shardings, place  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, make_source  # noqa: E402
+from repro_torch.dist import batch_pspec, param_shardings, pipelined_apply, place, set_mesh  # noqa: E402
+from repro_torch.dist.collectives import full  # noqa: E402
 from repro_torch.kernels.pwl_exp2 import kernel as pwl  # noqa: E402
 from repro_torch.launch import scrape_log  # noqa: E402
 from repro_torch.launch.cells import lower_cell  # noqa: E402
@@ -243,9 +265,11 @@ from repro_torch.launch.roofline import analyze_trace  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.attention import attention_forward  # noqa: E402
 from repro_torch.models.layers import apply_norm  # noqa: E402
-from repro_torch.obs import Tracer  # noqa: E402
+from repro_torch.obs import JitCompileWatcher, Tracer  # noqa: E402
 from repro_torch.models.model import _hybrid_layer, decode_step, forward, init_cache, init_params, prefill_step  # noqa: E402,E501
-from repro_torch.optim.adamw import tree_leaves  # noqa: E402
+from repro_torch.models.model import _default_positions, _transformer_block, _unstack  # noqa: E402
+from repro_torch.optim import compress_with_feedback, compressed_pmean, dequantize_int8, init_residual, quantize_int8  # noqa: E402,E501
+from repro_torch.optim.adamw import tree_leaves, tree_map  # noqa: E402
 from repro_torch.quant import QUANT_FLAGS, int8_dot, int8_dot_batched, parse_quant, quantize  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     Request,
@@ -1116,10 +1140,36 @@ def _layer(stacked, i):
     return None if stacked is None else stacked[i]
 
 
-def serve(cfg, params, phase: str = "serve", *, mesh=None, chunks=(None, 512), vs_naive: bool = True) -> dict:
+# A second wave in the buckets SERVE_PROMPT_LENS touched (64, 128, 256, 512,
+# 1024, 2048), other lengths: an engine's compile counts must not move.
+SECOND_WAVE_LENS = (50, 1600, 180, 600, 100, 1000, 300, 1300)
+SECOND_WAVE_NEW = 4
+
+
+def second_wave(engine: ServeEngine, cfg, phase: str, name: str) -> dict:
+    """Serve SECOND_WAVE_LENS's requests on ``engine`` after its first run;
+    its ``compile_counts()`` (the argument signatures per phase) must stay as
+    they were."""
+    counts = engine.compile_counts()
+    rng = np.random.default_rng(1)
+    for i, n in enumerate(SECOND_WAVE_LENS):
+        engine.submit(Request(rid=100 + i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                              max_new_tokens=SECOND_WAVE_NEW))
+    done = engine.run()
+    after = engine.compile_counts()
+    emit(phase, **{f"{name}_compile_counts": dict(first_wave=counts, second_wave=after)})
+    if after != counts or len(done) != len(SECOND_WAVE_LENS):
+        raise AssertionError(f"{name}: a second wave in the same buckets moved the compile counts "
+                             f"{counts} -> {after} ({len(done)} requests done)")
+    return counts
+
+
+def serve(cfg, params, phase: str = "serve", *, mesh=None, chunks=(None, 512), vs_naive: bool = True,
+          waves: bool = False) -> dict:
     """The engine on SERVE_PROMPT_LENS's requests, unchunked and chunked
     (``chunks``), with ``mesh`` under a device mesh (params placed by the
-    caller)."""
+    caller); with ``waves``, a second wave on the unchunked engine
+    (``second_wave``)."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SERVE_PROMPT_LENS]
     # Warm-up (not counted, not timed): CUDA context, cuBLAS handles, the
@@ -1166,13 +1216,16 @@ def serve(cfg, params, phase: str = "serve", *, mesh=None, chunks=(None, 512), v
                    flash_launches=run_launches, flash_launches_by_kernel=by_kernel,
                    max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
                    **(_path_counts() if cfg.moe is not None or cfg.quant is not None else {}),
-                   stats=engine.stats)
+                   stats=engine.stats, compile_counts=engine.compile_counts())
         if cfg.moe is not None and (run["moe_calls"]["capacity"] == 0 or run["moe_calls"]["dropless"] == 0):
             raise AssertionError(f"MoE layers ran {run['moe_calls']}: expected capacity prefills and dropless decode")
         if cfg.quant is not None and run["int_mm_calls"] == 0:
             raise AssertionError(f"the {run['quant']} policy made no _int_mm call")
         emit(phase, **run)
         runs.append(run)
+        if waves and chunk is None:
+            second_wave(engine, cfg, phase, f"{cfg.name}_serve")
+        del engine  # its cache must not count in the next run's peak
     if len(chunks) > 1:
         same = sum(outputs[None][i] == outputs[512][i] for i in outputs[None])
         emit(phase, chunked_equals_unchunked=f"{same}/{len(prompts)} requests")
@@ -1522,13 +1575,15 @@ SPEC_K = 4
 SPEC_GREEDY_PROMPT_LENS = GREEDY_PROMPT_LENS + (505,)
 
 
-def _spec_run(cfg, params, prompts, spec, *, batch_size, max_len, chunk=None, tracer=None, record=False):
+def _spec_run(cfg, params, prompts, spec, *, batch_size, max_len, chunk=None, tracer=None, record=False,
+              mesh=None):
     """Serve ``prompts`` speculatively with counts reset before and read
-    after; with ``record``, every verify round's positions, live slots and
-    ``accepted`` (on the device, read after the run) are kept to find the
-    first rejected draft."""
+    after, under ``mesh`` if given (params placed by the caller); with
+    ``record``, every verify round's positions, live slots and ``accepted``
+    (on the device, read after the run) are kept to find the first rejected
+    draft."""
     engine = ServeEngine(cfg, params, batch_size=batch_size, max_len=max_len, prefill_chunk=chunk,
-                         spec=spec, tracer=tracer, device="cuda")
+                         spec=spec, tracer=tracer, device="cuda", mesh=mesh)
     rounds = []
     if record:
         verify = engine._verify
@@ -1575,7 +1630,7 @@ def spec_serve(cfg, params, vanilla: dict) -> dict:
     and its telemetry checked."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SERVE_PROMPT_LENS]
-    runs, launches, telemetry = [], 0, None
+    runs, launches, telemetry, outputs = [], 0, None, {}
     for draft_quant in (None, "int8"):
         spec = SpecConfig(lookahead=SPEC_K, draft_quant=draft_quant)
         # Warm-up (not counted, not timed): the draft policy's first calls.
@@ -1591,25 +1646,32 @@ def spec_serve(cfg, params, vanilla: dict) -> dict:
             if len(done) != len(prompts) or any(len(r.output) != MAX_NEW for r in done.values()):
                 raise AssertionError(f"spec engine finished {len(done)} requests, not all with {MAX_NEW} tokens")
             launches += expected
-            ttft, tpot = request_latencies(done.values())
-            toks = sum(len(r.output) for r in done.values())
             same = sum(done[i].output == vanilla[chunk][i] for i in done)
-            stats = engine.stats
-            run = dict(arch=cfg.name, layers=cfg.num_layers, quant=_quant_flag(cfg),
-                       draft="self" if draft_quant is None else "self@int8", lookahead=SPEC_K,
-                       prefill_chunk=chunk, requests=len(done), tokens=toks, seconds=dt, tokens_per_s=toks / dt,
-                       ttft_ms_p50=float(np.median(ttft)) * 1e3, tpot_ms_p50=float(np.median(tpot)) * 1e3,
-                       tpot_amortized_ms_p50=engine.registry.get("serve_tpot_seconds").percentile(50) * 1e3,
-                       verify_steps=stats["verify_steps"], draft_steps=stats["draft_steps"],
-                       acceptance=engine.acceptance_rate(), equal_to_vanilla=f"{same}/{len(done)} requests",
-                       max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
-                       flash_launches_by_kernel=counts["flash"], stats=stats)
+            run = _spec_row(cfg, engine, done, dt, counts, "self" if draft_quant is None else "self@int8", chunk,
+                            equal_to_vanilla=f"{same}/{len(done)} requests")
             emit("spec", **run)
             runs.append(run)
+            outputs[draft_quant, chunk] = {i: r.output for i, r in done.items()}
             if tracer is not None:
                 telemetry = check_telemetry(engine, tracer)
+                second_wave(engine, cfg, "spec", f"{cfg.name}_spec_self")
             del engine, done  # its caches must not count in the next run's peak
-    return dict(runs=runs, launches=launches, telemetry=telemetry)
+    return dict(runs=runs, launches=launches, telemetry=telemetry, outputs=outputs)
+
+
+def _spec_row(cfg, engine, done, dt, counts, draft, chunk, **more) -> dict:
+    """A speculative run's serving metrics, steps and counts."""
+    ttft, tpot = request_latencies(done.values())
+    toks = sum(len(r.output) for r in done.values())
+    stats = engine.stats
+    return dict(arch=cfg.name, layers=cfg.num_layers, quant=_quant_flag(cfg), draft=draft, lookahead=SPEC_K,
+                prefill_chunk=chunk, requests=len(done), tokens=toks, seconds=dt, tokens_per_s=toks / dt,
+                ttft_ms_p50=float(np.median(ttft)) * 1e3, tpot_ms_p50=float(np.median(tpot)) * 1e3,
+                tpot_amortized_ms_p50=engine.registry.get("serve_tpot_seconds").percentile(50) * 1e3,
+                verify_steps=stats["verify_steps"], draft_steps=stats["draft_steps"],
+                acceptance=engine.acceptance_rate(), **more,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                flash_launches_by_kernel=counts["flash"], stats=stats, compile_counts=engine.compile_counts())
 
 
 def check_telemetry(engine, tracer) -> dict:
@@ -1936,7 +1998,120 @@ def _beside(phase: str, name: str, mesh_run: dict, plain_run: dict, keys) -> Non
                           for k in keys}})
 
 
-def dist_phase(served: dict, trained: dict, moe_served: dict) -> dict:
+def dist_spec(cfg, params, mesh, specced: dict) -> dict:
+    """(a) The spec phase's self-draft run (its requests, SpecConfig(lookahead=
+    SPEC_K), unchunked) under the 1 x 1 mesh: the draft shares the placed
+    params and places its own cache.  Tokens, acceptance and sm90 launches
+    equal to the no-mesh run's; a second wave leaves the compile counts."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SERVE_PROMPT_LENS]
+    spec = SpecConfig(lookahead=SPEC_K)
+    _spec_run(cfg, params, prompts[:1], spec, batch_size=4, max_len=2048, mesh=mesh)  # warm-up
+    engine, done, dt, counts, _ = _spec_run(cfg, params, prompts, spec, batch_size=4, max_len=2048, mesh=mesh)
+    plain = next(r for r in specced["runs"] if r["draft"] == "self" and r["prefill_chunk"] is None)
+    got, want = {i: r.output for i, r in done.items()}, specced["outputs"][None, None]
+    run = _spec_row(cfg, engine, done, dt, counts, "self", None, mesh="x".join(map(str, mesh.shape)),
+                    equal_to_no_mesh=f"{sum(got[i] == want[i] for i in want)}/{len(want)} requests")
+    emit("dist", spec_self_under_mesh=run)
+    _beside("dist", "olmo_spec_self", run, plain, ("ttft_ms_p50", "tpot_ms_p50", "tpot_amortized_ms_p50",
+                                                   "tokens_per_s", "max_memory_allocated_gb"))
+    if not isinstance(engine.draft.cache.k, DTensor):
+        raise AssertionError(f"the draft cache under the mesh is a {type(engine.draft.cache.k)}, not placed")
+    if got != want or run["acceptance"] != plain["acceptance"]:
+        raise AssertionError(f"spec under the 1 x 1 mesh: tokens equal {run['equal_to_no_mesh']}, acceptance "
+                             f"{run['acceptance']} against {plain['acceptance']}")
+    if counts["flash"] != plain["flash_launches_by_kernel"]:
+        raise AssertionError(f"spec under the mesh launched {counts['flash']}, no mesh "
+                             f"{plain['flash_launches_by_kernel']}")
+    second_wave(engine, cfg, "dist", "olmo-1b_spec_self_mesh")
+    return dict(run=run, launches=counts["flash"]["sm90"])
+
+
+def dist_compressed_pmean(cfg, mesh, first_loss: float) -> dict:
+    """(b) ``compressed_pmean`` over the mesh's "data" group, on the gradient
+    of the dist phase's first training step (the seed-0 placed params, the
+    trainer's batch 0: its loss must be that step's), local tensors, with
+    the residual one compression leaves: with n = 1 the average equals
+    ``dequantize_int8(*quantize_int8(g + r))`` and the new residual
+    ``compress_with_feedback``'s, bit for bit.  Timed with CUDA events."""
+    torch.cuda.reset_peak_memory_stats()
+    params = _placed(cfg, mesh)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in make_source(cfg, TRAIN_SHAPE, DataConfig(seed=0)).batch(0).items()}
+    batch = place(batch, batch_pspec(batch, mesh, cfg))
+    with set_mesh(mesh):
+        loss, g = value_and_grad(cfg, params, batch)
+    loss = float(full(loss))
+    del params, batch
+    torch.cuda.empty_cache()
+    g = tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t, g)
+    _, _, r = compress_with_feedback(g, init_residual(g))
+    avg, new_r = compressed_pmean(g, r, "data", mesh)
+    want_avg = tree_map(lambda gi, ri: dequantize_int8(*quantize_int8(gi.float() + ri)), g, r)
+    unequal = [i for i, (a, b) in enumerate(zip(tree_leaves(avg), tree_leaves(want_avg))) if not torch.equal(a, b)]
+    del want_avg
+    _, _, want_r = compress_with_feedback(g, r)
+    unequal += [f"r{i}" for i, (a, b) in enumerate(zip(tree_leaves(new_r), tree_leaves(want_r)))
+                if not torch.equal(a, b)]
+    del avg, new_r, want_r
+    torch.cuda.empty_cache()
+    leaves = tree_leaves(g)
+    n = sum(t.numel() for t in leaves)
+    ms = cuda_ms(lambda: compressed_pmean(g, r, "data", mesh), iters=5, warmup=1)
+    row = dict(loss=loss, first_train_loss=first_loss, leaves=len(leaves), params=n,
+               grad_dtype=str(leaves[0].dtype).replace("torch.", ""), ms=ms, unequal_leaves=unequal,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("dist", compressed_pmean=row)
+    if loss != first_loss:
+        raise AssertionError(f"the gradient's loss {loss} is not the first training step's {first_loss}")
+    if unequal:
+        raise AssertionError(f"compressed_pmean differs from the quantize round trip in leaves {unequal}")
+    del g, r
+    torch.cuda.empty_cache()
+    return row
+
+
+PIPELINE_MICROBATCHES = 4
+
+
+def dist_pipeline(cfg, mesh) -> dict:
+    """(c) ``pipelined_apply`` over olmo-1b's stacked layers, one
+    ``_transformer_block`` a stage, on a [4, 2048] input's embeddings, under
+    the 1 x 1 mesh.  The mesh has no "pod" axis (the card is one rank), so
+    this is the sequential schedule; the pipelined one runs only in gloo
+    ranks on the CPU (tests/test_torch_pipeline.py).  Equal bit for bit to
+    the model's layer loop, one sm90 launch a stage."""
+    params = init_params(cfg, seed=0, device="cuda")
+    b, sq = TRAIN_SHAPE.global_batch, TRAIN_SHAPE.seq_len
+    toks = torch.as_tensor(make_source(cfg, TRAIN_SHAPE, DataConfig(seed=0)).batch(0)["tokens"], device="cuda")
+    x = params["embed"][toks]
+    positions = _default_positions(cfg, b, sq, x.device)
+
+    def pipelined():
+        return pipelined_apply(lambda w, h: _transformer_block(h, w, cfg, positions), params["layers"], x,
+                               num_stages=cfg.num_layers, num_microbatches=PIPELINE_MICROBATCHES)
+
+    with torch.no_grad(), set_mesh(mesh):
+        torch.cuda.synchronize()
+        reset_fwd_counts()
+        got = pipelined()
+        torch.cuda.synchronize()
+        launches = dict(flash.launch_counts)
+        want = x
+        for layer in _unstack(params["layers"], cfg.num_layers):
+            want = _transformer_block(want, layer, cfg, positions)
+        ms = cuda_ms(pipelined, iters=3, warmup=1)
+    row = dict(stages=cfg.num_layers, microbatches=PIPELINE_MICROBATCHES, shape=[b, sq], schedule="sequential",
+               equal_to_layer_loop=bool(torch.equal(got, want)), launches=launches, ms=ms)
+    emit("dist", pipelined_apply=row)
+    if not row["equal_to_layer_loop"] or launches != dict(sm90=cfg.num_layers, simt=0):
+        raise AssertionError(f"pipelined_apply over the layers: {row}")
+    del params, x, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def dist_phase(served: dict, trained: dict, moe_served: dict, specced: dict) -> dict:
     """The distribution slice on the card (see the module docstring)."""
     t0 = time.perf_counter()
     mesh = _mesh_1x1()
@@ -1947,7 +2122,8 @@ def dist_phase(served: dict, trained: dict, moe_served: dict) -> dict:
         leaf = params["layers"]["attn"]["wq"]
         if not isinstance(leaf, DTensor) or leaf.device.type != "cuda":
             raise AssertionError(f"params not placed as DTensors on the card: {type(leaf)}")
-        out["serve"] = serve(cfg, params, "dist", mesh=mesh, chunks=(None,), vs_naive=False)
+        out["serve"] = serve(cfg, params, "dist", mesh=mesh, chunks=(None,), vs_naive=False, waves=True)
+        out["spec"] = dist_spec(cfg, params, mesh, specced)
         del params
     torch.cuda.empty_cache()
     got, want = out["serve"]["outputs"][None], served["outputs"][None]
@@ -1969,6 +2145,8 @@ def dist_phase(served: dict, trained: dict, moe_served: dict) -> dict:
     want_launches = {k: v * DIST_TRAIN_STEPS // TRAIN_STEPS for k, v in trained["launches"].items()}
     if out["train"]["launches"] != want_launches or not out["train"]["launches"]["flash_bwd_sm90_dkv"]:
         raise AssertionError(f"training launches {out['train']['launches']}, no-mesh {want_launches}")
+    out["compressed_pmean"] = dist_compressed_pmean(get_config("olmo-1b"), mesh, out["train"]["losses"][0])
+    out["pipeline"] = dist_pipeline(get_config("olmo-1b"), mesh)
 
     with torch.no_grad():
         qcfg = dataclasses.replace(get_config(MOE_ARCH, "none"), num_layers=MOE_SERVE_DEPTH)
@@ -2146,6 +2324,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         sys.exit(1)
+    # (d) every kernel library nvcc builds from here on, counted by phase.
+    watcher, builds = JitCompileWatcher().install(), {}
+
+    def built(phase: str) -> None:
+        builds[phase] = watcher.count - sum(builds.values())
+
     smi = nvidia_smi()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
@@ -2157,8 +2341,9 @@ def main() -> None:
         for line in path.with_suffix(".log").read_text().splitlines()
         if "registers" in line or "spill" in line
     ]
+    built("build")
     emit("build", seconds=time.perf_counter() - t0, libraries=[p.name for p in libs.values()],
-         ptxas=ptxas)
+         ptxas=ptxas, nvcc_builds=builds["build"])
     if sys.argv[1:] == ["--time-simt"]:
         time_flash_simt()
         time_simt_bwd(full=False)
@@ -2193,36 +2378,53 @@ def main() -> None:
 
     sweep_err = check_flash_sweep()
     check_pwl_subnormal_range()
+    built("kernels")
     timing = time_flash()
     simt_timing = time_flash_simt()
     simt_q_tiles = time_simt_q_tiles()
     bwd_err = check_bwd_sweep()
+    built("kernels_bwd")
     bwd_timing = time_bwd()
     pwl_compared, pwl_err = check_pwl()
     pwl_timing = time_pwl()
+    built("kernels_pwl")
 
     cfg = get_config("olmo-1b")
     params = init_params(cfg, seed=0, device="cuda")
-    served = serve(cfg, params)
+    served = serve(cfg, params, waves=True)
+    built("serve")
     specced = spec_serve(cfg, params, served["outputs"])
+    built("spec")
     del params
     torch.cuda.empty_cache()
     greedied = greedy(dataclasses.replace(cfg, dtype="float32"))
+    built("greedy")
     torch.cuda.empty_cache()
     spec_greedied = spec_greedy(dataclasses.replace(cfg, dtype="float32"))
+    built("spec_greedy")
     torch.cuda.empty_cache()
     trained = train(cfg)
+    built("train")
     torch.cuda.empty_cache()
     graded = grads(cfg)
+    built("grads")
     torch.cuda.empty_cache()
     moed = moe_phase()
     spec_moed = spec_moe()
+    built("moe")
     torch.cuda.empty_cache()
     recurrent = recurrent_phase()
+    built("recurrent")
     torch.cuda.empty_cache()
-    disted = dist_phase(served, trained, moed["served"]["none"])
+    disted = dist_phase(served, trained, moed["served"]["none"], specced)
+    built("dist")
     torch.cuda.empty_cache()
     tuned = tune()
+    built("tune")
+    watcher.uninstall()
+    emit("builds", nvcc_builds_by_phase=builds)
+    if any(n for phase, n in builds.items() if phase != "build"):
+        raise AssertionError(f"kernel libraries were built after the build phase: {builds}")
 
     serve_shape = next(r for r in timing if r["shape"] == [1, 2048, 16, 128])
     zamba2 = recurrent["zamba2-1.2b"]
@@ -2234,8 +2436,10 @@ def main() -> None:
                         zamba2_forward=zamba2["forward"]["launches"]["sm90"],
                         zamba2_train=zamba2["train"]["launches"]["flash_fwd"],
                         dist_serve=disted["serve"]["launches"],
+                        dist_spec_serve=disted["spec"]["launches"],
                         dist_train=disted["train"]["launches"]["flash_fwd"],
-                        dist_moe_serve=disted["moe_serve"]["launches"])
+                        dist_moe_serve=disted["moe_serve"]["launches"],
+                        dist_pipeline=disted["pipeline"]["launches"]["sm90"])
     greedy_shape = next(r for r in simt_timing if r["shape"] == [1, 256, 16, 128])
     simt_launches = dict(greedy=greedied["launches"], grads_float32=graded["fwd_launches"]["float32"]["simt"],
                          moe_greedy=moed["greedy"]["launches"], spec_greedy=spec_greedied["launches"],

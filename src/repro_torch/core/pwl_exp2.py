@@ -36,6 +36,8 @@ __all__ = [
     "segment_table",
     "packed_coeff_table",
     "pwl_exp2",
+    "pwl_exp",
+    "exp2_reference",
     "fp16_negative_normals",
     "pwl_error_stats",
 ]
@@ -96,6 +98,16 @@ def pwl_exp2(x: torch.Tensor, num_segments: int = DEFAULT_SEGMENTS) -> torch.Ten
     out = frac * _pow2(e)
     out = torch.where((x_i < -126) | (out < _FLT_MIN), 0.0, out)
     return out.to(x.dtype)
+
+
+def pwl_exp(x: torch.Tensor, num_segments: int = DEFAULT_SEGMENTS) -> torch.Tensor:
+    """exp(x) = exp2(x * log2 e) with the PWL exp2 (x <= 0), in fp32."""
+    return pwl_exp2(x.to(torch.float32) * LOG2_E, num_segments=num_segments)
+
+
+def exp2_reference(x: torch.Tensor) -> torch.Tensor:
+    """Exact exp2 in the input's precision, for error analysis."""
+    return torch.exp2(x)
 
 
 def fp16_negative_normals() -> np.ndarray:

@@ -7,9 +7,9 @@
     ("pod", "data", "model") mesh: params, optimizer state (ZeRO-1),
     batches and KV caches, and ``place``;
   * ``elastic``: mesh rescale plans with divisibility validation;
-  * ``fault``: step watchdog, preemption drain and restart loop.
-
-Not yet ported: ``pipeline`` (GPipe over "pod"; ROADMAP queue 1).
+  * ``fault``: step watchdog, preemption drain and restart loop;
+  * ``pipeline``: GPipe over the "pod" axis (``pipelined_apply``), its
+    activations passed between stages by point-to-point ops.
 """
 
 from .collectives import constrain, set_mesh  # noqa: F401
@@ -20,6 +20,7 @@ from .fault import (  # noqa: F401
     StragglerDetected,
     run_with_restarts,
 )
+from .pipeline import pipelined_apply  # noqa: F401
 from .sharding import (  # noqa: F401
     batch_pspec,
     cache_shardings,

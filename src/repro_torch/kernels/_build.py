@@ -9,6 +9,10 @@ sources and flags, so a changed source is rebuilt and an unchanged one is
 reused. An installed copy of the package has no checkout above it and must
 be given ``REPRO_TORCH_BUILD_DIR``.
 
+Each finished build logs one record to the ``repro_torch.kernels.build``
+logger (at DEBUG); ``obs.watch_jit_compiles`` counts them.  Loading a
+library already built logs nothing.
+
 Never ``--use_fast_math``: it flushes subnormals in the exact path and
 swaps ``exp2f`` for ``ex2.approx``, which changes results the tests hold.
 """
@@ -17,9 +21,11 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -31,6 +37,7 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+_log = logging.getLogger("repro_torch.kernels.build")  # obs.metrics.BUILD_LOGGER
 
 
 def nvcc() -> str:
@@ -78,7 +85,7 @@ def _start(name: str):
         [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
-    return proc, tmp
+    return proc, tmp, time.perf_counter()
 
 
 def _finish(name: str, started) -> Path:
@@ -87,12 +94,13 @@ def _finish(name: str, started) -> Path:
     out = library_path(name)
     if started is None:
         return out
-    proc, tmp = started
+    proc, tmp, t0 = started
     stdout, stderr = proc.communicate()
     out.with_suffix(".log").write_text(stdout + stderr)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    _log.debug("Finished nvcc build of %s in %.3f sec", name, time.perf_counter() - t0)
     return out
 
 

@@ -43,7 +43,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.attention import _exp2_fn, algorithm1
+from repro_torch.core.attention import NEG_INF, _exp2_fn, algorithm1  # noqa: F401  (NEG_INF: the reference's name)
 from repro_torch.core.pwl_exp2 import LOG2_E, packed_coeff_table
 from repro_torch.kernels import _build
 

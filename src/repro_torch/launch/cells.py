@@ -40,7 +40,8 @@ from .roofline import CostMode
 ADAFACTOR_ARCHS = {"arctic-480b", "qwen3-moe-235b-a22b"}
 
 
-def meta(shape, dtype) -> torch.Tensor:
+def sds(shape, dtype) -> torch.Tensor:
+    """The reference's ``jax.ShapeDtypeStruct``: a meta tensor."""
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
@@ -51,18 +52,18 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
     if shape.kind in ("train", "prefill"):
         batch: dict[str, Any] = {}
         if cfg.embedding_inputs:
-            batch["embeds"] = meta((gb, s, cfg.d_model), act)
+            batch["embeds"] = sds((gb, s, cfg.d_model), act)
         else:
-            batch["tokens"] = meta((gb, s), torch.int32)
+            batch["tokens"] = sds((gb, s), torch.int32)
         if cfg.mrope_sections is not None:
-            batch["positions"] = meta((gb, s, 3), torch.int32)
+            batch["positions"] = sds((gb, s, 3), torch.int32)
         if shape.kind == "train":
-            batch["labels"] = meta((gb, s), torch.int32)
+            batch["labels"] = sds((gb, s), torch.int32)
         return {"batch": batch}
     # decode: one new token against a cache of length seq_len
     return {
-        "tokens": meta((gb, 1), torch.int32),
-        "position": meta((), torch.int32),
+        "tokens": sds((gb, 1), torch.int32),
+        "position": sds((), torch.int32),
         "cache": init_cache(cfg, gb, s, device="meta"),
     }
 

@@ -29,31 +29,42 @@ weights are random, from ``--seed``.
                                  against sequential single-request decode
   --metrics-out PATH             dump the engine's metrics registry as
                                  Prometheus text at exit (TTFT/TPOT/queue
-                                 histograms, occupancy and MFU gauges)
+                                 histograms, occupancy and MFU gauges, and
+                                 jit_compiles_total: the kernel libraries
+                                 nvcc built during the run)
   --trace-out PATH               save a Chrome-trace/Perfetto JSON of the run
   --device                       cuda (default) or cpu
   --mesh DxM                     shard params + decode cache over a debug
                                  mesh (data x model), e.g. --mesh 2x2;
                                  D*M > 1 runs under torchrun (gloo with
                                  --device cpu, NCCL on the card), --mesh 1x1
-                                 makes a world-size-1 group
+                                 makes a world-size-1 group; it combines
+                                 with --spec-draft (the draft of a
+                                 self-draft shares the placed params)
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
       --spec-draft self --spec-quant int8 --check
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
       -m repro_torch.launch.serve --arch yi-9b --check --device cpu --mesh 2x2
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch olmo-1b --check --device cpu --mesh 2x2 \
+      --spec-draft self --spec-quant int8
+
+The run line ends with ``compiles {...}``: the engine's argument signatures
+per phase (``ServeEngine.compile_counts``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.models import init_params
-from repro_torch.obs import Tracer, set_tracer
+from repro_torch.obs import Tracer, set_tracer, watch_jit_compiles
 from repro_torch.quant.config import QUANT_FLAGS
 from repro_torch.serve import (
     Request,
@@ -152,8 +163,15 @@ def main() -> None:
         prompts[i] = rng.integers(0, cfg.vocab_size, size=plen).astype(np.int32)
         engine.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=args.max_new))
 
+    # With a metrics sink requested, also count the kernel libraries built
+    # during the run into the registry (one log record a build).
+    compile_watch = (
+        watch_jit_compiles(engine.registry.counter("jit_compiles_total", "kernel library builds observed"))
+        if args.metrics_out else contextlib.nullcontext()
+    )
     t0 = time.perf_counter()
-    done = engine.run()
+    with compile_watch:
+        done = engine.run()
     dt = time.perf_counter() - t0
 
     for r in sorted(done, key=lambda r: r.rid):
@@ -161,7 +179,8 @@ def main() -> None:
     toks = sum(len(r.output) for r in done)
     print(
         f"completed {len(done)}/{args.requests} on {args.device}: {toks} tokens "
-        f"in {dt:.2f}s ({toks / dt:.1f} tok/s) | stats {engine.stats}"
+        f"in {dt:.2f}s ({toks / dt:.1f} tok/s) | stats {engine.stats} "
+        f"| compiles {engine.compile_counts()}"
     )
     if spec is not None:
         print(

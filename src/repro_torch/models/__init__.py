@@ -5,6 +5,7 @@ from .model import (  # noqa: F401
     init_params,
     insert_cache,
     lm_loss,
+    param_shapes,
     prefill_step,
     rollback_cache,
     verify_step,

@@ -44,6 +44,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.collectives import _ambient_axis_names
+from repro_torch.dist.sharding import DATA_AXES  # noqa: F401  (the reference's name here)
 from repro_torch.quant import get_quant
 from .layers import dense_init, mlp_forward
 from .parallel import is_dtensor, moe as sharded_moe

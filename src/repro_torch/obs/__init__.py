@@ -12,8 +12,10 @@
 
 The serve engine, the trainer and the fault layer report through this
 package; ``launch/serve.py`` and ``launch/train.py`` take ``--metrics-out``
-and ``--trace-out``.  The reference's XLA compile watcher has no
-counterpart: the port compiles no executables (ROADMAP queue 1 item 2).
+and ``--trace-out``.  ``watch_jit_compiles`` counts the executables the
+port builds, the CUDA kernel libraries ``kernels/_build.py`` compiles at
+first use (the reference's XLA compile watcher); the serve launcher
+forwards them to a ``jit_compiles_total`` counter.
 """
 
 from .metrics import (  # noqa: F401
@@ -21,10 +23,12 @@ from .metrics import (  # noqa: F401
     Counter,
     Gauge,
     Histogram,
+    JitCompileWatcher,
     Registry,
     default_registry,
     enabled,
     set_enabled,
+    watch_jit_compiles,
 )
 from .mfu import (  # noqa: F401
     PAPER_ARRAY,

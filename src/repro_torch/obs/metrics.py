@@ -1,5 +1,6 @@
 """Labeled Counter/Gauge/Histogram registry with Prometheus/JSON exposition
-(a copy of ``repro.obs.metrics`` without its JAX compile watcher).
+(a copy of ``repro.obs.metrics``), and a build watcher in place of the
+reference's XLA compile watcher.
 
 Zero-dependency (stdlib only) metrics substrate for the whole repo: the
 serve engine, the trainer, and the fault-tolerance layer all report through
@@ -18,15 +19,21 @@ a ``Registry``.  Design points:
     overhead is pinned near-zero by the reference's ``tests/test_obs.py``.
   * ``snapshot()`` exports a nested plain dict (JSON-able); ``to_prometheus()``
     emits the text exposition format; ``to_json()`` is ``snapshot()`` dumped.
+  * ``JitCompileWatcher`` / ``watch_jit_compiles`` count the executables the
+    port builds: the kernel libraries ``kernels/_build.py`` compiles with
+    ``nvcc`` at first use, one log record a finished build; loading a
+    library already built (the cache hit) is silent, as XLA's is.
 """
 
 from __future__ import annotations
 
 import bisect
 import json
+import logging
 import math
 import threading
 from collections import deque
+from contextlib import contextmanager
 from typing import Iterable, Optional
 
 __all__ = [
@@ -38,6 +45,8 @@ __all__ = [
     "default_registry",
     "enabled",
     "set_enabled",
+    "JitCompileWatcher",
+    "watch_jit_compiles",
 ]
 
 
@@ -385,3 +394,54 @@ def default_registry() -> Registry:
     """The process-global registry (ad-hoc consumers; subsystems that need
     isolation — e.g. one ``ServeEngine`` per registry — create their own)."""
     return _DEFAULT
+
+
+# ---------------------------------------------------------------------------
+# Kernel-build counter (the reference's XLA compile-event counter)
+# ---------------------------------------------------------------------------
+
+BUILD_LOGGER = "repro_torch.kernels.build"
+BUILD_MESSAGE = "Finished nvcc build of"  # kernels/_build.py's record, one a build
+
+
+class JitCompileWatcher(logging.Handler):
+    """Counts the kernel libraries built (``kernels/_build.py`` logs
+    "Finished nvcc build of <name> in <t> sec" once a build; a library
+    already built loads silently).  Optionally forwards each build into a
+    registry counter (child or unlabeled family)."""
+
+    def __init__(self, counter=None):
+        super().__init__(level=logging.DEBUG)
+        self.count = 0
+        self.counter = counter
+
+    def emit(self, record):
+        if BUILD_MESSAGE in record.getMessage():
+            self.count += 1
+            if self.counter is not None:
+                self.counter.inc()
+
+    def reset(self):
+        self.count = 0
+
+    def install(self):
+        logger = logging.getLogger(BUILD_LOGGER)
+        self._prev = logger.level
+        logger.setLevel(logging.DEBUG)
+        logger.addHandler(self)
+        return self
+
+    def uninstall(self):
+        logger = logging.getLogger(BUILD_LOGGER)
+        logger.removeHandler(self)
+        logger.setLevel(getattr(self, "_prev", logging.NOTSET))
+
+
+@contextmanager
+def watch_jit_compiles(counter=None):
+    """Context manager: yields an installed ``JitCompileWatcher``."""
+    watcher = JitCompileWatcher(counter).install()
+    try:
+        yield watcher
+    finally:
+        watcher.uninstall()

@@ -39,11 +39,15 @@ the engine makes anyway (the sampled tokens).
 Runs eagerly on ``device`` (the card unless the caller asks for the CPU).
 With ``mesh`` (a ``DeviceMesh`` over ("data", "model"); the params placed by
 the caller, ``repro_torch.dist.sharding.param_shardings``) the caches are
-placed per ``cache_shardings`` and every phase runs under the ambient mesh.
-Not ported yet (ROADMAP queue 1): speculative decoding under a mesh, and
-per-bucket compiled executables (``compile_counts`` and the
-``serve_jit_executables`` gauge), whose counterpart is one CUDA graph per
-bucket.
+placed per ``cache_shardings`` and every phase runs under the ambient mesh,
+speculative decoding included: a draft with DTensor params (a self-draft
+shares the target's) places its own cache the same way.
+
+The port compiles no executable per phase.  ``compile_counts()`` (and the
+``serve_jit_executables{phase=...}`` gauge) counts what ``jax.jit``'s cache
+holds one executable for: the distinct argument signatures each phase has
+run (``serve_step.Executables``), the reference's counts on the same
+requests and the set one CUDA graph per phase would capture.
 """
 
 from __future__ import annotations
@@ -58,10 +62,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.collectives import set_mesh
-from repro_torch.dist.sharding import cache_shardings, place
 from repro_torch.models.model import decode_step, init_cache, insert_cache, prefill_step
+from repro_torch.models.parallel import is_dtensor
 from repro_torch.obs import MFUMeter, Registry, get_tracer
-from .serve_step import SamplingConfig, make_decode_step, sample_logits
+from .serve_step import Executables, SamplingConfig, make_decode_step, new_cache, sample_logits
 
 
 @dataclasses.dataclass(eq=False)
@@ -130,8 +134,6 @@ class ServeEngine:
     ):
         if cfg.family == "encoder":
             raise ValueError("encoder archs have no decode phase")
-        if mesh is not None and spec is not None:
-            raise ValueError("speculative decoding under a mesh is not ported yet")
         self.cfg, self.params, self.mesh = cfg, params, mesh
         self.device = torch.device(device)
         self.batch, self.max_len = batch_size, max_len
@@ -152,6 +154,7 @@ class ServeEngine:
         self._done: list[Request] = []
         self._generator = torch.Generator(device=self.device).manual_seed(self.sampling.seed)
         self._decode = make_decode_step(cfg, sampling=self.sampling)
+        self._executables = Executables()
 
         # -- telemetry: an engine-scoped registry, so that two engines (a
         # spec target and a vanilla baseline) never share counters; the
@@ -187,6 +190,10 @@ class ServeEngine:
         )
         self._g_occupancy = self.registry.gauge("serve_slot_occupancy", "fraction of decode slots live")
         self._g_queue_depth = self.registry.gauge("serve_queue_depth", "requests waiting for a slot")
+        self._g_compiled = self.registry.gauge(
+            "serve_jit_executables", "argument signatures per engine phase (compiled executables in the reference)",
+            ("phase",),
+        )
 
         # -- speculative decoding: draft worker + verify closure --
         self.spec = spec
@@ -212,6 +219,7 @@ class ServeEngine:
             self.draft = DraftWorker(
                 self.draft_cfg, draft_params, batch_size=batch_size, max_len=max_len,
                 prefill_chunk=prefill_chunk, device=self.device,
+                mesh=mesh if is_dtensor(draft_params["embed"]) else None,
             )
             self._verify = make_spec_verify(cfg)
             spec_keys = [
@@ -235,6 +243,17 @@ class ServeEngine:
     def stats(self) -> dict:
         """The ``serve_*_total`` counters as a fresh plain dict."""
         return {k: int(self._counters[k].value) for k in self._stat_keys}
+
+    def compile_counts(self) -> dict:
+        """Argument signatures run so far, per phase (also exported as the
+        ``serve_jit_executables`` gauge)."""
+        phases = ("prefill", "insert", "generate") + (("verify",) if self.draft is not None else ())
+        counts = self._executables.counts(phases)
+        if self.draft is not None:
+            counts.update(self.draft.compile_counts())
+        for phase, n in counts.items():
+            self._g_compiled.labels(phase=phase).set(n)
+        return counts
 
     def acceptance_rate(self) -> float:
         """Fraction of proposed draft tokens the target accepted."""
@@ -272,12 +291,13 @@ class ServeEngine:
             "prefill", cat="serve", tid=slot,
             args={"rid": req.rid, "len": plen, "bucket": bucket},
         ):
+            tokens = torch.as_tensor(toks, device=self.device)
+            self._executables.see("prefill", tokens)
             prefix = self._new_cache(1, bucket)
-            logits, prefix = prefill_step(
-                self.params, self.cfg, torch.as_tensor(toks, device=self.device),
-                prefix, [plen], chunk_size=self.prefill_chunk,
-            )
+            logits, prefix = prefill_step(self.params, self.cfg, tokens, prefix, [plen],
+                                          chunk_size=self.prefill_chunk)
             tok0 = sample_logits(logits[0, plen - 1], self._generator, self.sampling)
+            self._executables.see("insert", self.cache, prefix)
             self.cache = insert_cache(self.cache, prefix, slot)
             tok0 = int(tok0)  # waits for the device: the first token is on the host
         # The first token is sampled inside prefill, so TTFT is the queue
@@ -317,10 +337,7 @@ class ServeEngine:
             tr.instant("retire", tid=slot, args={"rid": req.rid, "tokens": n})
 
     def _new_cache(self, batch: int, max_len: int):
-        cache = init_cache(self.cfg, batch, max_len, self.device)
-        if self.mesh is None:
-            return cache
-        return place(cache, cache_shardings(cache, self.cfg, self.mesh))
+        return new_cache(self.cfg, batch, max_len, self.device, self.mesh)
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -369,13 +386,10 @@ class ServeEngine:
         """Vanilla generate: one batched decode step, one token per slot."""
         t0 = time.perf_counter()
         with self.tracer.span("generate", cat="serve", tid=0, args={"live": len(live)}):
-            nt, _logits, self.cache = self._decode(
-                self.params,
-                self.cache,
-                torch.as_tensor(self._next_tok[:, None], device=self.device),
-                torch.as_tensor(self._positions, device=self.device),
-                self._generator,
-            )
+            tokens = torch.as_tensor(self._next_tok[:, None], device=self.device)
+            positions = torch.as_tensor(self._positions, device=self.device)
+            self._executables.see("generate", self.cache, tokens, positions)
+            nt, _logits, self.cache = self._decode(self.params, self.cache, tokens, positions, self._generator)
             nt = nt[:, 0].cpu().numpy()  # waits for the decode result
         now = time.perf_counter()
         self._counters["decode_steps"].inc()
@@ -415,11 +429,10 @@ class ServeEngine:
         tokens = np.concatenate([self._next_tok[:, None], drafts], axis=1).astype(np.int32)
         t1 = time.perf_counter()
         with self.tracer.span("verify", cat="serve", tid=0, args={"live": len(live), "k": k}):
-            greedy, accepted, self.cache = self._verify(
-                self.params, self.cache,
-                torch.as_tensor(tokens, device=self.device),
-                torch.as_tensor(self._positions, device=self.device),
-            )
+            tokens = torch.as_tensor(tokens, device=self.device)
+            positions = torch.as_tensor(self._positions, device=self.device)
+            self._executables.see("verify", self.cache, tokens, positions)
+            greedy, accepted, self.cache = self._verify(self.params, self.cache, tokens, positions)
             # One read for both: the round's only wait on the verify.
             both = torch.cat([greedy, accepted[:, None]], dim=1).cpu().numpy()
             greedy, accepted = both[:, :-1], both[:, -1]
@@ -470,6 +483,7 @@ class ServeEngine:
             steps += 1
             if not self.step():
                 break
+        self.compile_counts()  # refresh the serve_jit_executables gauge
         done, self._done = self._done, []
         return done
 

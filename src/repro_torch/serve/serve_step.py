@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.collectives import full
-from repro_torch.models.model import decode_step, forward
+from repro_torch.dist.sharding import cache_shardings, place
+from repro_torch.models.model import decode_step, forward, init_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,3 +91,39 @@ def make_decode_step(cfg: ModelConfig, *, sampling: Optional[SamplingConfig] = N
         return next_tok[:, None], logits, new_cache
 
     return serve_step
+
+
+def new_cache(cfg: ModelConfig, batch: int, max_len: int, device, mesh=None):
+    """A zeroed decode cache, placed per ``cache_shardings`` on ``mesh``."""
+    cache = init_cache(cfg, batch, max_len, device)
+    return cache if mesh is None else place(cache, cache_shardings(cache, cfg, mesh))
+
+
+def _signature(tree) -> tuple:
+    """Shapes and dtypes of the tensor leaves of ``tree`` (dicts, tuples,
+    lists), in order; other leaves by type."""
+    if isinstance(tree, dict):
+        return tuple((k, _signature(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return tuple(_signature(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.shape), tree.dtype
+    return type(tree).__name__
+
+
+class Executables:
+    """The distinct argument signatures each engine phase has run, the
+    counterpart of the reference's per-phase jit cache sizes: ``jax.jit``
+    holds one executable per signature, so on the same requests these are
+    its counts (prefill: buckets touched; insert: prefix shapes; generate,
+    verify: one), and the set a captured CUDA graph per phase would take.
+    The engine's fixed params are not part of a signature."""
+
+    def __init__(self):
+        self._seen: dict[str, set] = {}
+
+    def see(self, phase: str, *args) -> None:
+        self._seen.setdefault(phase, set()).add(_signature(args))
+
+    def counts(self, phases) -> dict:
+        return {phase: len(self._seen.get(phase, ())) for phase in phases}

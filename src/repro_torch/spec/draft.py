@@ -24,8 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import init_cache, insert_cache, prefill_step, rollback_cache
-from repro_torch.serve.serve_step import make_decode_step
+from repro_torch.models import insert_cache, prefill_step, rollback_cache
+from repro_torch.serve.serve_step import Executables, make_decode_step, new_cache
 
 
 class DraftWorker:
@@ -40,18 +40,24 @@ class DraftWorker:
         max_len: int,
         prefill_chunk: Optional[int] = None,
         device="cuda",
+        mesh=None,  # the engine's DeviceMesh where ``params`` are DTensors
     ):
-        self.cfg, self.params = cfg, params
+        self.cfg, self.params, self.mesh = cfg, params, mesh
         self.batch, self.max_len = batch_size, max_len
         self.prefill_chunk = prefill_chunk
         self.device = torch.device(device)
         self.cache = None
         self._positions = np.zeros(batch_size, np.int32)
         self._decode = make_decode_step(cfg)  # greedy
+        self._executables = Executables()
+
+    def compile_counts(self) -> dict:
+        """Argument signatures per draft phase (``serve_step.Executables``)."""
+        return {f"draft_{k}": n for k, n in self._executables.counts(("prefill", "insert", "generate")).items()}
 
     def ensure_cache(self) -> None:
         if self.cache is None:
-            self.cache = init_cache(self.cfg, self.batch, self.max_len, self.device)
+            self.cache = new_cache(self.cfg, self.batch, self.max_len, self.device, self.mesh)
 
     def prefill_into_slot(self, prompt: np.ndarray, slot: int, bucket: int) -> None:
         """Mirror the target's prefill+insert for ``slot`` (same bucket).  The
@@ -61,11 +67,11 @@ class DraftWorker:
         plen = len(prompt)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :plen] = prompt
-        prefix = init_cache(self.cfg, 1, bucket, self.device)
-        _, prefix = prefill_step(
-            self.params, self.cfg, torch.as_tensor(toks, device=self.device),
-            prefix, [plen], chunk_size=self.prefill_chunk,
-        )
+        tokens = torch.as_tensor(toks, device=self.device)
+        self._executables.see("prefill", tokens)
+        prefix = new_cache(self.cfg, 1, bucket, self.device, self.mesh)
+        _, prefix = prefill_step(self.params, self.cfg, tokens, prefix, [plen], chunk_size=self.prefill_chunk)
+        self._executables.see("insert", self.cache, prefix)
         self.cache = insert_cache(self.cache, prefix, slot)
         self._positions[slot] = plen
 
@@ -76,6 +82,7 @@ class DraftWorker:
         pos = torch.as_tensor(self._positions, device=self.device)
         drafts = []
         for j in range(k + 1):
+            self._executables.see("generate", self.cache, tok, pos)
             tok, _, self.cache = self._decode(self.params, self.cache, tok, pos + j)
             if j < k:
                 drafts.append(tok[:, 0])

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.collectives import full
 from repro_torch.models import rollback_cache, verify_step
 
 
@@ -36,7 +37,8 @@ def make_spec_verify(cfg: ModelConfig):
 
     def spec_verify(params, cache, tokens, positions):
         logits, cache = verify_step(params, cfg, tokens, cache, positions)
-        greedy = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        # Under a mesh every rank reads the full logits, as sampling does.
+        greedy = torch.argmax(full(logits).float(), dim=-1).to(torch.int32)
         # accepted = longest prefix with draft[j] == greedy[j]; cumprod
         # zeroes everything after the first mismatch.
         match = (greedy[:, :-1] == tokens[:, 1:]).to(torch.int32)

@@ -22,9 +22,11 @@ import torch.distributed as dist
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.dist import apply_rescale, batch_pspec, param_shardings, place, rescale_plan, set_mesh
+from repro_torch.dist import pipelined_apply
 from repro_torch.dist.collectives import full, psum_mean
 from repro_torch.launch.mesh import ensure_process_group, make_debug_mesh
 from repro_torch.models import model as tm
+from repro_torch.optim import compressed_pmean
 from repro_torch.optim.adamw import AdamW, tree_leaves
 from repro_torch.train.train_step import make_train_step
 
@@ -102,8 +104,78 @@ def rescale(out_dir: Path, cfg, placed: dict, toks: torch.Tensor) -> None:
         }))
 
 
+def _stage(w, x):
+    return torch.tanh(x @ w)
+
+
+def _sequential_with_grads(ws, x, c):
+    ws, x = ws.clone().requires_grad_(), x.clone().requires_grad_()
+    out = x
+    for i in range(ws.shape[0]):
+        out = _stage(ws[i], out)
+    return (out.detach(), *torch.autograd.grad((out * c).sum(), (ws, x)))
+
+
+def pipeline(out_dir: Path) -> None:
+    """``pipelined_apply`` at 4 and 2 stages against the sequential
+    schedule, forward and gradient, with plain and DTensor weights."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    ensure_process_group(4, "cpu")
+    rank = dist.get_rank()
+    z = np.load(out_dir / "pipeline.npz")
+    x, c = torch.from_numpy(z["x"]), torch.from_numpy(z["c"])
+    saved, errors = {}, {}
+    for stages, shape, names in ((4, (4,), ("pod",)), (2, (2, 2), ("pod", "data"))):
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        ws = torch.from_numpy(z[f"ws{stages}"])
+        seq, gw_seq, gx_seq = _sequential_with_grads(ws, x, c)
+        w_plain = ws.clone().requires_grad_()
+        w_dt = distribute_tensor(ws.clone(), mesh, [Shard(0)] + [Replicate()] * (len(shape) - 1)).requires_grad_()
+        for kind, w in (("plain", w_plain), ("dtensor", w_dt)):
+            xg = x.clone().requires_grad_()
+            with set_mesh(mesh):
+                out = pipelined_apply(lambda p, h: _stage(p["w"], h), {"w": w}, xg,
+                                      num_stages=stages, num_microbatches=4)
+            gw, gx = torch.autograd.grad((out * c).sum(), (w, xg))
+            errors[f"{kind}{stages}"] = dict(
+                out=float((out - seq).abs().max()), grad_w=float((full(gw) - gw_seq).abs().max()),
+                grad_x=float((gx - gx_seq).abs().max()))
+            if kind == "plain":
+                saved[f"out{stages}"] = out.detach().numpy()
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, errors)
+    if rank == 0:
+        np.savez(out_dir / "pipeline.out.npz", **saved)
+        (out_dir / "pipeline.json").write_text(json.dumps(gathered))
+
+
+def pmean(out_dir: Path) -> None:
+    """``compressed_pmean`` of rank-distinct gradients over "data"."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    ensure_process_group(4, "cpu")
+    rank = dist.get_rank()
+    mesh = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
+    z = np.load(out_dir / "pmean.npz")
+    leaves = sorted({k.split("/")[1] for k in z.files})
+    grads = {n: torch.from_numpy(z[f"g/{n}/{rank}"]) for n in leaves}
+    residual = {n: torch.from_numpy(z[f"r/{n}/{rank}"]) for n in leaves}
+    avg, new_r = compressed_pmean(grads, residual, "data", mesh)
+    np.savez(out_dir / f"pmean.{rank}.npz", **{f"avg/{n}": avg[n].numpy() for n in leaves},
+             **{f"r/{n}": new_r[n].numpy() for n in leaves})
+
+
 if __name__ == "__main__":
-    mode, out_dir, *rest = sys.argv[1:]
-    if mode == "forward":
-        forward(Path(out_dir), rest)
+    modes, out_dir, *rest = sys.argv[1:]
+    for mode in modes.split(","):
+        if mode == "forward":
+            forward(Path(out_dir), rest)
+        elif mode == "pipeline":
+            pipeline(Path(out_dir))
+        elif mode == "pmean":
+            pmean(Path(out_dir))
+        else:
+            raise SystemExit(f"unknown mode {mode!r}")
     dist.destroy_process_group()

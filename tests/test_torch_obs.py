@@ -12,7 +12,10 @@ Held here:
   * the Trainer's JSONL records have the reference's keys, and
     ``scrape_log`` reads both streams alike (and equals the reference's
     scraper on every log);
-  * both launchers' ``--metrics-out`` and ``--trace-out``.
+  * both launchers' ``--metrics-out`` and ``--trace-out``;
+  * ``watch_jit_compiles`` counts the kernel libraries built (a stubbed
+    ``nvcc``): one build 1, a rebuilt hash 1 more, a cache hit nothing, each
+    forwarded to the counter.
 """
 
 import json
@@ -181,9 +184,8 @@ def test_engine_metrics_equal_jax(olmo, spec):
             k: v["count"] for k, v in ref_snap["histograms"][name].items()}, name
     batch_util = ours.registry.get("serve_batch_utilization")
     assert batch_util.sum == ref.registry.get("serve_batch_utilization").sum
-    # Gauges: the same families (the reference's per-phase executable gauge
-    # aside) and, for those that count, the same values.
-    assert set(ours_snap["gauges"]) == set(ref_snap["gauges"]) - {"serve_jit_executables"}
+    # Gauges: the same families and, for those that count, the same values.
+    assert set(ours_snap["gauges"]) == set(ref_snap["gauges"])
     for name in ("serve_slot_occupancy", "serve_queue_depth") + (("spec_acceptance_rate",) if spec else ()):
         assert ours_snap["gauges"][name] == ref_snap["gauges"][name], name
     assert ours.stats == {k: int(ours.registry.get(f"serve_{k}_total").value) for k in ours.stats}
@@ -304,3 +306,41 @@ def test_serve_launcher_metrics_and_trace(monkeypatch, capsys, tmp_path):
         assert needle in text, needle
     names = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]]
     assert names.count("queued") == 4 and "verify" in names
+
+
+# -- the build watcher ----------------------------------------------------------
+
+
+def test_watch_jit_compiles_counts_kernel_builds(monkeypatch, tmp_path):
+    """A stubbed ``nvcc`` on PATH and a temporary build directory: the first
+    build counts 1, a cache hit 0, a changed source hash (other flags) 1
+    more; the counter gets every one; the watcher uninstalls cleanly."""
+    import logging
+    import os
+    import stat
+
+    from repro_torch.kernels import _build
+    from repro_torch.obs import watch_jit_compiles
+    from repro_torch.obs.metrics import BUILD_LOGGER
+
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done\n'
+                    ': > "$out"\necho "ptxas info    : stub"\n')
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    reg = Registry()
+    counter = reg.counter("jit_compiles_total", "kernel library builds observed")
+    with watch_jit_compiles(counter) as watcher:
+        first = _build.build("pwl_exp2")
+        assert first.exists() and watcher.count == 1
+        assert _build.build("pwl_exp2") == first and watcher.count == 1  # cache hit: silent
+        monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+        second = _build.build("pwl_exp2")
+        assert second != first and second.exists() and watcher.count == 2
+    assert counter.value == 2
+    assert watcher not in logging.getLogger(BUILD_LOGGER).handlers
+    _build.build("flash_fwd")  # not watched
+    assert watcher.count == 2 and counter.value == 2

@@ -12,6 +12,8 @@ chip_smoke.py).  Tolerances:
 * ``pwl_error_stats``: equal to the reference's, exactly.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -22,9 +24,11 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core.pwl_exp2 import pwl_error_stats as jax_error_stats  # noqa: E402
 from repro.core.pwl_exp2 import pwl_exp2 as jax_pwl_exp2  # noqa: E402
 from repro.kernels.pwl_exp2.kernel import pwl_exp2_pallas  # noqa: E402
-from repro_torch.core import pwl_exp2 as torch_pwl  # noqa: E402
 from repro_torch.kernels.pwl_exp2 import kernel as pwl_kernel  # noqa: E402
 from repro_torch.kernels.pwl_exp2 import pwl_exp2_cuda  # noqa: E402
+
+# The module, as the package exports the function of its name (as repro.core does).
+torch_pwl = importlib.import_module("repro_torch.core.pwl_exp2")
 
 SHAPES = [(8,), (1000, 37), (3, 5, 7), (128, 128)]  # tests/test_kernels.py:92
 SEGMENTS = [2, 4, 8, 16, 32, 64]

@@ -3,8 +3,11 @@
 prefill, dropless decode) under no quantization and under ``int8``.  Greedy
 tokens must be identical: to the JAX engine's, and to the port's own
 sequential single-request decode (for MoE with ``capacity_factor = E / k``,
-where prefill drops nothing: sequential decode is dropless).  Seeds are
-fixed, so the outcome is deterministic."""
+where prefill drops nothing: sequential decode is dropless).
+``compile_counts()`` equals the reference's on the same requests and stays
+unchanged over a second wave in the same buckets (the counterpart of
+tests/test_serve_engine.py's compile test).  Seeds are fixed, so the
+outcome is deterministic."""
 
 import dataclasses
 
@@ -160,3 +163,34 @@ def test_launcher_serves_recurrent_archs(monkeypatch, capsys, arch):
     launcher.main()
     out = capsys.readouterr().out
     assert "completed 4/4 on cpu" in out and "check OK: all 4 outputs match" in out
+
+
+# (prompt length, max new tokens), as tests/test_serve_engine.py: the first
+# wave touches both buckets at both edges, the second new lengths in them.
+WAVE1 = [(5, 3), (8, 3), (12, 3), (16, 3)]
+WAVE2 = [(7, 4), (3, 2), (13, 5), (9, 3)]
+
+
+def _wave(engine, request_cls, vocab, wave, seed, rid0=0):
+    rng = np.random.default_rng(seed)
+    for i, (n, new) in enumerate(wave):
+        engine.submit(request_cls(rid=rid0 + i, prompt=rng.integers(1, vocab, n).astype(np.int32),
+                                  max_new_tokens=new))
+    return {r.rid: r.output for r in engine.run()}
+
+
+def test_compile_counts_equal_reference_and_stable(model):
+    """Prefill counts the buckets touched (2), insert the prefix shapes (2),
+    generate 1, as the reference's jit caches; a second wave of new lengths
+    in the same buckets adds nothing; the gauge holds the counts."""
+    jcfg, jparams, cfg, params, _ = model
+    ours = ServeEngine(cfg, params, batch_size=2, max_len=MAX_LEN, prefill_buckets=(8, 16), device="cpu")
+    ref = JaxServeEngine(jcfg, jparams, batch_size=2, max_len=MAX_LEN, prefill_buckets=(8, 16))
+    assert _wave(ours, Request, cfg.vocab_size, WAVE1, 1) == _wave(ref, JaxRequest, cfg.vocab_size, WAVE1, 1)
+    counts = ours.compile_counts()
+    assert counts == ref.compile_counts() == {"prefill": 2, "insert": 2, "generate": 1}
+    out = _wave(ours, Request, cfg.vocab_size, WAVE2, 2, rid0=10)
+    assert out == _wave(ref, JaxRequest, cfg.vocab_size, WAVE2, 2, rid0=10) and len(out) == 4
+    assert ours.compile_counts() == counts == ref.compile_counts()
+    gauge = ours.registry.snapshot()["gauges"]["serve_jit_executables"]
+    assert {k: int(v) for k, v in gauge.items()} == {f'{{phase="{k}"}}': n for k, n in counts.items()}

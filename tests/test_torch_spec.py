@@ -16,6 +16,14 @@ Held here:
     JAX's ``ServeEngine(spec=...)``, with equal spec counters, for dense and
     MoE targets, self-draft (acceptance exactly 1.0), an int8 draft, a
     distinct-arch draft and chunked prefill, through eviction and back-fill;
+  * ``compile_counts()`` (verify and the draft's phases included) equals
+    the reference's on the same requests and stays unchanged over a second
+    wave in the same buckets (the counterpart of tests/test_spec.py's);
+  * under a mesh: an in-process 1 x 1 gloo mesh (DTensor params, a placed
+    draft cache) gives the tokens and counters of JAX's
+    ``ServeEngine(spec=..., mesh=make_debug_mesh(2, 2))``, and the serve
+    launcher under ``--mesh 2x2 --spec-draft self`` (and ``--spec-quant
+    int8``) in 4 gloo ranks gives sequential decode's tokens;
   * the policy's validation and the launcher's ``--spec-draft``.
 Seeds are fixed, so every outcome is deterministic.
 """
@@ -358,8 +366,89 @@ def test_launcher_serves_speculatively(monkeypatch, capsys, extra):
     out = capsys.readouterr().out
     assert "check OK: all 5 outputs match sequential decode" in out
     assert "spec: acceptance" in out
+    assert "| compiles {'prefill': " in out and "'draft_generate': 1}" in out
     if not extra:
         assert "spec: acceptance 1.000" in out
+
+
+# (prompt length, max new tokens), as tests/test_spec.py's compile test.
+WAVE1 = [(5, 3), (8, 3), (12, 3), (16, 3)]
+WAVE2 = [(7, 4), (3, 2), (13, 5), (9, 3)]
+
+
+@pytest.mark.parametrize("mode", ["vanilla", "spec"])
+def test_compile_counts_equal_reference_and_stable(olmo, mode):
+    """Buckets (8, 16): prefill 2, and in spec mode verify 1, draft prefill
+    2 and draft generate 1, each the reference's count; a second wave of new
+    lengths in the same buckets leaves every count as it was."""
+    jcfg, tcfg, jparams, tparams = olmo
+    spec, jspec = (SpecConfig(lookahead=3), JaxSpecConfig(lookahead=3)) if mode == "spec" else (None, None)
+    ours = ServeEngine(tcfg, tparams, batch_size=2, max_len=MAX_LEN, prefill_buckets=(8, 16), spec=spec,
+                       device="cpu")
+    ref = JaxServeEngine(jcfg, jparams, batch_size=2, max_len=MAX_LEN, prefill_buckets=(8, 16), spec=jspec,
+                         draft_params=jparams if jspec else None)
+    waves = [(WAVE1, 1, 0), (WAVE2, 2, 10)]
+    counts = None
+    for wave, seed, rid0 in waves:
+        prompts = _prompts(jcfg.vocab_size, wave, seed=seed)
+        ours_out = _serve(ours, Request, prompts, wave)
+        assert ours_out == _serve(ref, JaxRequest, prompts, wave) and len(ours_out) == 4
+        got = ours.compile_counts()
+        assert got == ref.compile_counts()
+        assert counts is None or got == counts
+        counts = got
+    assert counts["prefill"] == 2
+    if spec is not None:
+        assert counts["verify"] == 1 and counts["draft_generate"] == 1 and counts["draft_prefill"] == 2
+    else:
+        assert counts["generate"] == 1 and "verify" not in counts
+
+
+def test_spec_engine_under_a_1x1_gloo_mesh_matches_jax_mesh(olmo):
+    """A world-size-1 gloo group and a 1 x 1 mesh: the target's and the
+    self-draft's params are DTensors, both caches placed; tokens and
+    counters equal JAX's spec engine on a 2 x 2 mesh of CPU devices."""
+    import torch.distributed as dist
+
+    from repro.dist.sharding import param_shardings as jax_param_shardings
+    from repro.launch.mesh import make_debug_mesh as jax_debug_mesh
+    from repro_torch.dist import param_shardings, place
+    from repro_torch.launch.mesh import ensure_process_group, make_debug_mesh
+
+    jcfg, tcfg, jparams, tparams = olmo
+    prompts = _prompts(jcfg.vocab_size, SCHEDULE, seed=3)
+    jmesh = jax_debug_mesh(2, 2)
+    jplaced = jax.device_put(jparams, jax_param_shardings(jparams, jcfg, jmesh))
+    jengine = JaxServeEngine(jcfg, jplaced, batch_size=2, max_len=MAX_LEN, prefill_buckets=BUCKETS,
+                             spec=JaxSpecConfig(lookahead=4), mesh=jmesh)
+    ref = _serve(jengine, JaxRequest, prompts, SCHEDULE)
+    made = ensure_process_group(1, "cpu")
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        placed = place(tparams, param_shardings(tparams, tcfg, mesh))
+        engine = ServeEngine(tcfg, placed, batch_size=2, max_len=MAX_LEN, prefill_buckets=BUCKETS,
+                             spec=SpecConfig(lookahead=4), device="cpu", mesh=mesh)
+        out = _serve(engine, Request, prompts, SCHEDULE)
+        assert engine.draft.mesh is mesh and type(engine.draft.cache.k).__name__ == "DTensor"
+    finally:
+        if made:
+            dist.destroy_process_group()
+    assert out == ref
+    assert engine.stats == {k: jengine.stats[k] for k in engine.stats}
+    assert engine.acceptance_rate() == jengine.acceptance_rate() == 1.0
+
+
+@pytest.mark.parametrize("draft", [[], ["--spec-quant", "int8"]], ids=["self", "self_int8"])
+def test_serve_launcher_mesh_2x2_spec_equals_sequential_decode(tmp_path, draft):
+    """``launch.serve --mesh 2x2 --spec-draft self --check`` in 4 gloo ranks:
+    the self-draft shares the placed params, its cache is placed as the
+    target's; every request's tokens equal unsharded sequential decode's,
+    also with the int8 draft (departure (g): local-shard scales)."""
+    from test_torch_dist import _torchrun
+
+    out = _torchrun(4, ["-m", "repro_torch.launch.serve", "--arch", "olmo-1b", "--check", "--device", "cpu",
+                        "--mesh", "2x2", "--requests", "6", "--spec-draft", "self", *draft], tmp_path)
+    assert out.stdout.count("check OK: all 6 outputs match sequential decode") == 4
 
 
 def test_spec_int8_kv_target_matches_jax():
