@@ -184,7 +184,14 @@ non-zero):
                of each kernel, step times beside; qwen3-moe-235b-a22b at
                depth 4 under none served under the mesh (the expert-parallel
                branch at model = 1): tokens, MoE calls and launches equal to
-               the moe phase's.  (a) The spec phase's self-draft run
+               the moe phase's; the same under int8: tokens, sm90 launches
+               and _int_mm calls equal to the moe phase's int8 run (at
+               model = 1 no int8 product is split, so none reduces),
+               TTFT/TPOT beside it.  int8 under a model axis > 1 (each
+               product with the whole operands' scales and int32 sum over
+               "model") runs only in gloo ranks on the CPU
+               (tests/test_torch_dist_int8.py): one card has one rank.
+               (a) The spec phase's self-draft run
                (unchunked) under the mesh, the draft sharing the placed
                params and placing its own cache: tokens, acceptance and
                sm90 launches equal to the no-mesh run's, TTFT/TPOT (per
@@ -2111,6 +2118,33 @@ def dist_pipeline(cfg, mesh) -> dict:
     return row
 
 
+def dist_moe_serve(mesh, flag: str, want: dict) -> dict:
+    """qwen3-moe-235b-a22b at depth MOE_SERVE_DEPTH under ``flag``, its
+    seed-0 params placed on ``mesh``, served with the moe phase's requests
+    (unchunked): tokens, MoE calls, sm90 launches and ``_int_mm`` calls
+    equal to the moe phase's run ``want``."""
+    with torch.no_grad():
+        qcfg = dataclasses.replace(get_config(MOE_ARCH, flag), num_layers=MOE_SERVE_DEPTH)
+        params = _placed(qcfg, mesh)
+        out = serve(qcfg, params, "dist", mesh=mesh, chunks=(None,), vs_naive=False)
+        del params
+    torch.cuda.empty_cache()
+    mrun, mwant = out["runs"][0], want["runs"][0]
+    got, wanted = out["outputs"][None], want["outputs"][None]
+    name = "moe_serve" if flag == "none" else f"moe_{flag}_serve"
+    _beside("dist", name, mrun, mwant, ("ttft_ms_p50", "tpot_ms_p50", "tokens_per_s"))
+    emit("dist", **{f"{name}_equal": dict(
+        tokens=f"{sum(got[i] == wanted[i] for i in wanted)}/{len(wanted)} requests",
+        **{k: dict(mesh_1x1=mrun[k], no_mesh=mwant[k])
+           for k in ("moe_calls", "flash_launches_by_kernel", "int_mm_calls")})})
+    for k in ("moe_calls", "flash_launches_by_kernel", "int_mm_calls"):
+        if mrun[k] != mwant[k]:
+            raise AssertionError(f"qwen3-moe under {flag} and the 1 x 1 mesh: {k} {mrun[k]} != {mwant[k]}")
+    if got != wanted:
+        raise AssertionError(f"qwen3-moe under {flag} and the 1 x 1 mesh served other tokens")
+    return out
+
+
 def dist_phase(served: dict, trained: dict, moe_served: dict, specced: dict) -> dict:
     """The distribution slice on the card (see the module docstring)."""
     t0 = time.perf_counter()
@@ -2148,21 +2182,8 @@ def dist_phase(served: dict, trained: dict, moe_served: dict, specced: dict) -> 
     out["compressed_pmean"] = dist_compressed_pmean(get_config("olmo-1b"), mesh, out["train"]["losses"][0])
     out["pipeline"] = dist_pipeline(get_config("olmo-1b"), mesh)
 
-    with torch.no_grad():
-        qcfg = dataclasses.replace(get_config(MOE_ARCH, "none"), num_layers=MOE_SERVE_DEPTH)
-        params = _placed(qcfg, mesh)
-        out["moe_serve"] = serve(qcfg, params, "dist", mesh=mesh, chunks=(None,), vs_naive=False)
-        del params
-    torch.cuda.empty_cache()
-    mrun, mwant = out["moe_serve"]["runs"][0], moe_served["runs"][0]
-    got, want = out["moe_serve"]["outputs"][None], moe_served["outputs"][None]
-    _beside("dist", "moe_serve", mrun, mwant, ("ttft_ms_p50", "tpot_ms_p50", "tokens_per_s"))
-    emit("dist", moe_tokens_equal=f"{sum(got[i] == want[i] for i in want)}/{len(want)} requests",
-         moe_calls=dict(mesh_1x1=mrun["moe_calls"], no_mesh=mwant["moe_calls"]))
-    if got != want or mrun["moe_calls"] != mwant["moe_calls"]:
-        raise AssertionError(f"qwen3-moe under the 1 x 1 mesh: tokens or MoE calls differ ({mrun['moe_calls']})")
-    if mrun["flash_launches_by_kernel"] != mwant["flash_launches_by_kernel"]:
-        raise AssertionError("qwen3-moe's forward launches under the mesh differ from the no-mesh run's")
+    out["moe_serve"] = dist_moe_serve(mesh, "none", moe_served["none"])
+    out["moe_int8_serve"] = dist_moe_serve(mesh, "int8", moe_served["int8"])
     torch.distributed.destroy_process_group()
 
     # The dry-run's prediction for the train phase's step, on a 1 x 1 mesh
@@ -2416,7 +2437,7 @@ def main() -> None:
     recurrent = recurrent_phase()
     built("recurrent")
     torch.cuda.empty_cache()
-    disted = dist_phase(served, trained, moed["served"]["none"], specced)
+    disted = dist_phase(served, trained, moed["served"], specced)
     built("dist")
     torch.cuda.empty_cache()
     tuned = tune()
@@ -2439,6 +2460,7 @@ def main() -> None:
                         dist_spec_serve=disted["spec"]["launches"],
                         dist_train=disted["train"]["launches"]["flash_fwd"],
                         dist_moe_serve=disted["moe_serve"]["launches"],
+                        dist_moe_int8_serve=disted["moe_int8_serve"]["launches"],
                         dist_pipeline=disted["pipeline"]["launches"]["sm90"])
     greedy_shape = next(r for r in simt_timing if r["shape"] == [1, 256, 16, 128])
     simt_launches = dict(greedy=greedied["launches"], grads_float32=graded["fwd_launches"]["float32"]["simt"],

@@ -140,7 +140,7 @@ def tree_zip(fn, tree, other):
 
 
 def local_island(fn, args: tuple, in_specs: tuple, out_specs: Any, *, mesh=None,
-                 partial: Sequence[str] = ()):
+                 partial: Sequence[str] = (), varying: Sequence[str] = ()):
     """``fn(*local_args)`` on local shards, the reference's ``shard_map``.
 
     Each tensor leaf of ``args`` (a DTensor, or a plain tensor taken as the
@@ -151,14 +151,16 @@ def local_island(fn, args: tuple, in_specs: tuple, out_specs: Any, *, mesh=None,
     tree of them), summed over the mesh axes in ``partial``.  Without a mesh
     ``fn`` runs on ``args`` as they are.
 
-    Gradients: on a mesh axis over which the island's outputs differ (one of
-    them sharded or partial there), a replicated input's local gradient is a
-    partial sum; elsewhere it keeps the input's placement.
+    Gradients: on a mesh axis over which the island's work differs (an
+    output sharded or partial there, or an axis in ``varying``: one whose
+    shards ``fn`` itself reduces to a replicated output), a replicated
+    input's local gradient is a partial sum; elsewhere it keeps the
+    input's placement.
     """
     mesh = mesh if mesh is not None else get_mesh()
     if mesh is None:
         return fn(*args)
-    distinct = set(partial)
+    distinct = set(partial) | set(varying)
     for spec in _spec_leaves(out_specs):
         for entry in spec:
             distinct.update((entry,) if isinstance(entry, str) else tuple(entry or ()))

@@ -153,7 +153,7 @@ def mlp_forward(
     x: torch.Tensor, params: dict, mlp_type: str, quant: Quant = _FP
 ) -> torch.Tensor:
     if is_dtensor(x):
-        return sharded_mlp(lambda a, p: mlp_forward(a, p, mlp_type, quant), x, params)
+        return sharded_mlp(lambda a, p: mlp_forward(a, p, mlp_type, quant), x, params, quant)
 
     def dot(a, w):
         return quant.dot(a, w, "mlp")

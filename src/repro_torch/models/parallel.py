@@ -19,6 +19,12 @@ sub-layer that must see local tensors or whose layout is explicit:
     0``) is read from replicated wk/wv, and a cache replicated over "model"
     holds on each rank the heads that rank reads;
   * ``mlp``: column-parallel gate/up, row-parallel down, a partial sum;
+
+    under an int8 policy for their class these two hand their products the
+    layout of the shards (``quant.split_weights``): each product takes the
+    whole operands' scales, and the row-parallel one sums its int32
+    accumulator over "model", so the island's output is replicated there
+    and equals the unsharded one, as the reference's GSPMD gives it;
   * ``moe``: expert parallelism (the reference's shard_map branch);
   * ``replicated``: the recurrent blocks (Mamba2, mLSTM, sLSTM), whose
     fused in-projections do not split by rank; their weights are gathered
@@ -40,6 +46,9 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.collectives import P, local_island, mesh_sizes
 from repro_torch.dist.sharding import DATA_AXES, _fit, spec_of
+from repro_torch.quant import Quant, get_quant
+from repro_torch.quant.policy import split_weights
+from repro_torch.quant.quantize import Split
 
 
 def is_dtensor(x) -> bool:
@@ -107,11 +116,13 @@ def _head_layout(cfg: ModelConfig, m: int) -> tuple[bool, bool]:
 def attention(body, x, params: dict, cfg: ModelConfig, positions, cache=None, write_pos=None):
     """``body(x, params, local_cfg, positions, cache, write_pos) -> o`` on
     the rank's heads; the result is a partial sum over "model" where heads
-    are sharded.  The cache keeps its own placements (it is written in
-    place)."""
+    are sharded (replicated under an int8 policy for attention, whose wo
+    product sums over "model").  The cache keeps its own placements (it is
+    written in place)."""
     mesh = x.device_mesh
     m, r = _model(mesh)
     q_sh, kv_sh = _head_layout(cfg, m)
+    int8 = q_sh and get_quant(cfg).active("attention")
     hd = cfg.resolved_head_dim
     specs = {}
     for name, leaf in params.items():
@@ -129,6 +140,7 @@ def attention(body, x, params: dict, cfg: ModelConfig, positions, cache=None, wr
     lcfg = dataclasses.replace(cfg, num_heads=hq, num_kv_heads=nkv, head_dim=hd)
 
     def local(x_l, p_l, pos_l, cache_l, wp_l):
+        whole = p_l
         if kv_lo is not None:
             cols = slice(kv_lo * hd, (kv_lo + 1) * hd)
             p_l = {k: (v[..., cols] if k in ("wk", "wv", "bk", "bv") else v) for k, v in p_l.items()}
@@ -136,7 +148,14 @@ def attention(body, x, params: dict, cfg: ModelConfig, positions, cache=None, wr
                 cache_l = type(cache_l)(*(
                     leaf[:, :, kv_lo:kv_lo + 1] if leaf.dim() >= 3 else leaf for leaf in cache_l
                 ))
-        return body(x_l, p_l, lcfg, pos_l, cache_l, wp_l)
+        splits = []
+        if int8:
+            group = mesh.get_group("model")
+            splits = [(p_l["wo"], Split("contraction", group)), (p_l["wq"], Split("columns", group))]
+            splits += [(p_l[k], Split("columns", group) if kv_sh else Split("columns", whole=whole[k]))
+                       for k in ("wk", "wv")]
+        with split_weights(splits):
+            return body(x_l, p_l, lcfg, pos_l, cache_l, wp_l)
 
     cache_specs = None if cache is None else tuple(spec_of(leaf) for leaf in cache)
     bspec = batch_spec(mesh, x)
@@ -144,23 +163,36 @@ def attention(body, x, params: dict, cfg: ModelConfig, positions, cache=None, wr
         local,
         (x, params, positions, cache, write_pos),
         (bspec, specs, batch_spec(mesh, positions), cache_specs, batch_spec(mesh, write_pos)),
-        bspec, mesh=mesh, partial=("model",) if q_sh else (),
+        bspec, mesh=mesh, partial=("model",) if q_sh and not int8 else (),
+        varying=("model",) if q_sh else (),
     )
 
 
-def mlp(body, x, params: dict):
+def mlp(body, x, params: dict, quant: Quant):
     """``body(x, params)`` with column-parallel gate/up and row-parallel
-    down where d_ff divides "model"; a partial sum over it then."""
+    down where d_ff divides "model"; a partial sum over it then, or, under
+    ``quant``'s int8 for "mlp", replicated (down sums over "model")."""
     mesh = x.device_mesh
     m, _ = _model(mesh)
     sharded = m > 1 and params["up"].shape[-1] % m == 0
+    int8 = sharded and quant.active("mlp")
     specs = {
         name: (_first(leaf) if name == "down" else _last(leaf)) if sharded else P()
         for name, leaf in params.items()
     }
+
+    def local(x_l, p_l):
+        splits = []
+        if int8:
+            group = mesh.get_group("model")
+            splits = [(w, Split("contraction" if name == "down" else "columns", group)) for name, w in p_l.items()]
+        with split_weights(splits):
+            return body(x_l, p_l)
+
     bspec = batch_spec(mesh, x)
-    return local_island(body, (x, params), (bspec, specs), bspec, mesh=mesh,
-                        partial=("model",) if sharded else ())
+    return local_island(local, (x, params), (bspec, specs), bspec, mesh=mesh,
+                        partial=("model",) if sharded and not int8 else (),
+                        varying=("model",) if sharded else ())
 
 
 def moe(block, x, params: dict, cfg: ModelConfig):

@@ -23,11 +23,17 @@ matmul against the unquantized operands, cast back to x's and w's dtypes.
 ``int8_dot_batched`` is the reference's ``vmap(int8_dot)``: each expert of
 the stack gets its own weight scales (per tensor: one scalar an expert; per
 channel: one an output channel of that expert) and its own product.
+
+Under a mesh the model's islands (``models.parallel``) hand a product the
+rank's shards; a ``Split`` says how they lie in the whole operands, and the
+product takes the whole operands' scales and int32 sum by collectives, so
+that every rank gets the unsharded answer bit for bit, as the reference's
+GSPMD does.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
@@ -105,6 +111,45 @@ def _quantize_weight(w: torch.Tensor, per_channel: bool, experts: bool = False):
     return _round_clip(wf, scale), scale
 
 
+class Split(NamedTuple):
+    """How the operands of an int8 product are parts of the whole ones.
+
+    * ``"contraction"`` (row-parallel): x's last dim and w's rows are split
+      over ``group``.  x's row absmax and w's absmax are MAX all-reduced
+      over it, and the int32 accumulator is SUM all-reduced (exact: 127**2
+      times the widest contraction of ``configs/``, qwen2.5-32b's d_ff of
+      27648, is 4.5e8 < 2**31), so the epilogue sees the whole sum.
+    * ``"columns"`` (column-parallel): w's columns are split over
+      ``group``, or w is a column slice of ``whole``, a weight every rank
+      holds.  Per channel the scales are already whole; per tensor, the
+      one absmax is MAX all-reduced over ``group`` or taken of ``whole``.
+    """
+
+    kind: str
+    group: Any = None
+    whole: Optional[torch.Tensor] = None
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+
+    return funcol.wait_tensor(funcol.all_reduce(t, op, group))
+
+
+def _quantize_split(x: torch.Tensor, w: torch.Tensor, per_channel: bool, split: Split):
+    """``quantize_rows(x)`` and ``_quantize_weight(w, per_channel)`` with
+    the whole operands' absmax (see ``Split``)."""
+    xf, wf = x.float(), w.float()
+    xa = xf.abs().amax(dim=-1, keepdim=True)
+    wa = wf.abs().amax(dim=-2, keepdim=True) if per_channel else wf.abs().max()
+    if split.kind == "contraction":
+        xa, wa = _all_reduce(xa, "max", split.group), _all_reduce(wa, "max", split.group)
+    elif not per_channel:
+        wa = _all_reduce(wa, "max", split.group) if split.whole is None else split.whole.float().abs().max()
+    xs, ws = _scale(xa), _scale(wa)
+    return _round_clip(xf, xs), xs, _round_clip(wf, ws), ws
+
+
 def pad_widths(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``a [m, k]`` and ``b [k, n]`` with k and n padded with zeros to
     multiples of ``INT_MM_WIDTH_MULTIPLE``: the zero columns of ``a`` meet
@@ -136,19 +181,26 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def int8_accumulate(
-    x: torch.Tensor, w: torch.Tensor, per_channel: bool, experts: bool = False
+    x: torch.Tensor, w: torch.Tensor, per_channel: bool, experts: bool = False,
+    split: Optional[Split] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The integer part of ``x [..., d] @ w [d, f]`` (with ``experts``, of
     ``x [E, ..., d] @ w [E, d, f]``, one product an expert): the int32
     accumulator [..., f], x's row scales [..., 1] and w's scales, shaped to
-    broadcast against the accumulator's last axis."""
+    broadcast against the accumulator's last axis.  With a ``split``, of
+    the whole operands that ``x`` and ``w`` are parts of."""
     with record_function("int8_quantize"):
-        xq, xs = quantize_rows(x)
-        wq, ws = _quantize_weight(w, per_channel, experts)
+        if split is None:
+            xq, xs = quantize_rows(x)
+            wq, ws = _quantize_weight(w, per_channel, experts)
+        else:
+            xq, xs, wq, ws = _quantize_split(x, w, per_channel, split)
     d, f = w.shape[-2:]
     with record_function("int8_int_mm"):
         if not experts:
             acc = _int_mm(xq.reshape(-1, d), wq)
+            if split is not None and split.kind == "contraction":
+                acc = _all_reduce(acc, "sum", split.group)
         elif x.is_cuda:  # _int_mm is 2-D: one call an expert
             acc = torch.stack([_int_mm(r, we) for r, we in zip(xq.reshape(w.shape[0], -1, d), wq)])
         else:
@@ -160,28 +212,32 @@ def int8_accumulate(
 
 class _Int8Dot(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, per_channel, experts):
+    def forward(ctx, x, w, per_channel, experts, split):
         ctx.save_for_backward(x, w)
-        acc, xs, ws = int8_accumulate(x, w, per_channel, experts)
+        acc, xs, ws = int8_accumulate(x, w, per_channel, experts, split)
         return (acc.float() * xs * ws).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         # Straight-through: gradients of the fp32 matmul w.r.t. the
-        # unquantized operands (AQT's default training rule).
+        # unquantized operands (AQT's default training rule).  Under a
+        # split they are the rank's part: dx of a row-parallel product is
+        # x's shard, of a column-parallel one a partial sum.
         x, w = ctx.saved_tensors
         g32, w32 = g.float(), w.float()
         lead = (w.shape[0],) if w.dim() == 3 else ()
         dx = torch.matmul(g32.reshape(*lead, -1, g.shape[-1]), w32.transpose(-1, -2))
         x2 = x.float().reshape(*lead, -1, x.shape[-1])
         dw = torch.matmul(x2.transpose(-1, -2), g32.reshape(*lead, -1, g.shape[-1]))
-        return dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype), None, None
+        return dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype), None, None, None
 
 
-def int8_dot(x: torch.Tensor, w: torch.Tensor, *, per_channel: bool = True) -> torch.Tensor:
+def int8_dot(
+    x: torch.Tensor, w: torch.Tensor, *, per_channel: bool = True, split: Optional[Split] = None
+) -> torch.Tensor:
     """Quantized ``x [..., d] @ w [d, f]`` (differentiable, straight-through
-    backward)."""
-    return _Int8Dot.apply(x, w, per_channel, False)
+    backward); with a ``split``, the rank's shards of larger operands."""
+    return _Int8Dot.apply(x, w, per_channel, False, split)
 
 
 def int8_dot_batched(
@@ -189,7 +245,7 @@ def int8_dot_batched(
 ) -> torch.Tensor:
     """Expert-batched quantized matmul: x [E, ..., d] @ w [E, d, f], each
     expert as ``int8_dot`` (the reference's vmap)."""
-    return _Int8Dot.apply(x, w, per_channel, True)
+    return _Int8Dot.apply(x, w, per_channel, True, None)
 
 
 def tree_bytes(tree: Any) -> int:

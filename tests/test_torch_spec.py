@@ -443,7 +443,7 @@ def test_serve_launcher_mesh_2x2_spec_equals_sequential_decode(tmp_path, draft):
     """``launch.serve --mesh 2x2 --spec-draft self --check`` in 4 gloo ranks:
     the self-draft shares the placed params, its cache is placed as the
     target's; every request's tokens equal unsharded sequential decode's,
-    also with the int8 draft (departure (g): local-shard scales)."""
+    also with the int8 draft (its products with the whole operands' scales)."""
     from test_torch_dist import _torchrun
 
     out = _torchrun(4, ["-m", "repro_torch.launch.serve", "--arch", "olmo-1b", "--check", "--device", "cpu",
