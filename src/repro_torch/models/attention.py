@@ -34,6 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import naive_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.obs import get_tracer
 from repro_torch.quant import dequantize_kv, get_quant, quantize_kv
 from .layers import apply_mrope, apply_rope, dense_init, rms_norm
 from .parallel import attention as _sharded, is_dtensor
@@ -202,9 +203,12 @@ def decode_attention(
     Slot i's new K/V goes to row ``lengths[i]``, so slots at different
     depths share one step.  A slot whose length has reached capacity writes
     nothing, like the reference's ``mode="drop"`` scatter.  It is the
-    verify pass at S = 1 with the write rows at the cached lengths.
+    verify pass at S = 1 with the write rows at the cached lengths.  The
+    whole layer is one device span, ``decode_attention``, on the ambient
+    tracer.
     """
-    o, cache = verify_attention(x, params, cfg, cache, positions, cache.lengths)
+    with get_tracer().span("decode_attention", device=True):
+        o, cache = verify_attention(x, params, cfg, cache, positions, cache.lengths)
     return o, cache._replace(lengths=cache.lengths + 1)
 
 

@@ -31,31 +31,30 @@ starting from zero, in ascending expert order (the order of the reference's
 scatter-add over the expert-major slots), a dropped copy adding a zero row
 last.  No atomics: two calls on the same input are bit-equal on the card.
 
-The three stages run inside ``torch.profiler.record_function`` ranges
-(``RANGES``) so that a trace attributes device time to each
-(``launch/profile_serve.py``); outside a profiler a range costs a check.
+The three stages are device spans of the ambient tracer
+(``repro_torch.obs``): ``moe_dispatch``, ``moe_experts`` and
+``moe_combine``; with tracing off they cost nothing.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.collectives import _ambient_axis_names
 from repro_torch.dist.sharding import DATA_AXES  # noqa: F401  (the reference's name here)
+from repro_torch.obs import get_tracer
 from repro_torch.quant import get_quant
 from .layers import dense_init, mlp_forward
 from .parallel import is_dtensor, moe as sharded_moe
 
 # Dispatches since the last ``reset_counts``, by mode, and the (token,
-# expert) copies they routed (read by chip_smoke.py and
-# launch/profile_serve.py).  The dropped copies are summed on the device
-# without a host sync; ``dropped_copies`` waits for it.
+# expert) copies they routed (read by chip_smoke.py).  The dropped copies
+# are summed on the device without a host sync; ``dropped_copies`` waits
+# for it.
 counts = {"capacity": 0, "dropless": 0, "copies_capacity": 0, "copies_dropless": 0}
 _dropped: dict = {}
-RANGES = ("moe_dispatch", "moe_experts", "moe_combine")
 # With ``track_margins`` set, the smallest router margin seen since the last
 # reset (a token's k-th largest probability minus its (k+1)-th) is kept on
 # the device: a margin near zero is a routing near-tie, where rounding can
@@ -111,15 +110,16 @@ def _moe_block(x, router, gate, up, down, cfg: ModelConfig, expert_offset: int =
     capacity = t if dropless else max(int(t * k * moe.capacity_factor / moe.num_experts), 1)
     dev = x.device
 
-    with record_function("moe_dispatch"):
+    tracer = get_tracer()
+    with tracer.span("moe_dispatch", device=True):
         buf, weight_for_slot, slot_s, order, pos = _dispatch(
             x, router, cfg, expert_offset, e_loc, capacity)
-    with record_function("moe_experts"):
+    with tracer.span("moe_experts", device=True):
         quant = get_quant(cfg)
         h = F.silu(quant.dot_batched(buf, gate, "moe"))
         h = h * quant.dot_batched(buf, up, "moe")
         out_buf = quant.dot_batched(h, down, "moe")  # [E, C, d]
-    with record_function("moe_combine"):
+    with tracer.span("moe_combine", device=True):
         y = _combine(out_buf, weight_for_slot, slot_s, order, t, k, x.dtype)
 
     mode = "dropless" if dropless else "capacity"

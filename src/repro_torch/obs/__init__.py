@@ -5,8 +5,9 @@
     registry with Prometheus-text and JSON exposition and a global off
     switch.
   * :mod:`repro_torch.obs.trace` — Chrome-trace/Perfetto span + event
-    tracer with a ``torch.profiler.record_function`` pass-through;
-    ``NullTracer`` is the free disabled twin.
+    tracer with a ``torch.profiler.record_function`` pass-through and
+    spans timed on the device's clock; ``NullTracer`` is the free disabled
+    twin.
   * :mod:`repro_torch.obs.mfu` — model-FLOPs-utilization accounting against
     the paper's FSA array peak (not the card's).
 
@@ -40,4 +41,4 @@ from .mfu import (  # noqa: F401
     train_step_flops,
     verify_flops,
 )
-from .trace import NullTracer, Tracer, get_tracer, set_tracer  # noqa: F401
+from .trace import NullTracer, Tracer, get_tracer, set_tracer, using  # noqa: F401

@@ -17,11 +17,24 @@ Spans come in two forms:
     host-side timestamps already on hand (e.g. a request's queue-wait
     window emitted at retire time).
 
+``span(..., device=True)`` times the block on the device's clock: on the
+card a pair of CUDA events on the current stream brackets the work the
+block enqueues.  ``flush()`` places each completed pair on the tracer's
+epoch through an anchor event it records, waits for and reads the host
+clock at, so the spans line up with the host spans and the profiler's
+timeline; they land as ``"X"`` events (``cat`` ``"device"``) on one lane
+named ``device``.  Without CUDA a device span is its host interval, on
+the same lane.  The serving engine flushes after each step and the
+trainer after each step's loss read, both of which wait for the device
+anyway.
+
 ``NullTracer`` is the disabled twin: every method is a no-op and ``span``
-is a reusable null context manager, so instrumented code needs no
-``if tracing:`` guards.  The module-global tracer (``get_tracer``)
-defaults to the null tracer; launchers swap in a real one for
-``--trace-out``.
+returns one shared null context, so instrumented code needs no
+``if tracing:`` guards and pays nothing when tracing is off.  The
+module-global tracer (``get_tracer``) defaults to the null tracer;
+launchers swap in a real one for ``--trace-out``, and ``using(tracer)``
+makes an engine's or a trainer's own tracer the ambient one for the code
+beneath it.
 """
 
 from __future__ import annotations
@@ -35,7 +48,10 @@ from typing import Optional
 
 import torch
 
-__all__ = ["Tracer", "NullTracer", "get_tracer", "set_tracer"]
+__all__ = ["Tracer", "NullTracer", "get_tracer", "set_tracer", "using", "DEVICE_TID"]
+
+# The lane of the device spans.
+DEVICE_TID = 2**31 - 1
 
 
 class Tracer:
@@ -48,6 +64,12 @@ class Tracer:
         self.events: list[dict] = []
         self._lock = threading.Lock()
         self._epoch = time.perf_counter()
+        # Device spans closed since the last flush: (name, args, start, end),
+        # each end a CUDA event on the card and a host time elsewhere.
+        self._pending: list[tuple] = []
+        self._cuda: Optional[bool] = None  # decided at the first device span
+        self._spare_events: list = []
+        self._device_lane = False
         # Metadata record naming the process lane in the Perfetto UI.
         self.events.append(
             {
@@ -76,8 +98,21 @@ class Tracer:
 
     @contextlib.contextmanager
     def span(self, name: str, *, cat: str = "", tid: Optional[int] = None,
-             args: Optional[dict] = None):
-        """Measure the enclosed block as a complete ("X") event."""
+             args: Optional[dict] = None, device: bool = False):
+        """Measure the enclosed block as a complete ("X") event: on the host's
+        clock, or with ``device`` on the device's, emitted by ``flush``."""
+        if device:
+            # The events are recorded inside the profiler's range, so the
+            # range's ends bracket them on the host's clock.
+            with torch.profiler.record_function(name):
+                start = self._mark()
+                try:
+                    yield self
+                finally:
+                    end = self._mark()
+                    with self._lock:
+                        self._pending.append((name, args, start, end))
+            return
         tid = threading.get_ident() % 2**31 if tid is None else tid
         t0 = self.now_s()
         try:
@@ -86,6 +121,49 @@ class Tracer:
         finally:
             self.complete(name, t0, self.now_s() - t0, cat=cat, tid=tid,
                           args=args)
+
+    def _mark(self):
+        """A point on the device's clock: a CUDA event recorded on the
+        current stream, or the host time where there is no card."""
+        if self._cuda is None:
+            self._cuda = torch.cuda.is_available()
+        if not self._cuda:
+            return self.now_s()
+        with self._lock:
+            ev = self._spare_events.pop() if self._spare_events else torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def flush(self) -> None:
+        """Emit the device spans closed since the last flush on the
+        ``device`` lane.  On the card this records an anchor event, waits
+        for it and reads the host clock: each event's host time is that
+        reading less its device time to the anchor, so the error is the
+        host's wake-up after the wait, and each flush anchors anew."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        if not pending:
+            return
+        if self._cuda:
+            anchor = torch.cuda.Event(enable_timing=True)
+            anchor.record()
+            anchor.synchronize()
+            t_anchor = self.now_s()
+
+            def host_s(ev) -> float:
+                return t_anchor - ev.elapsed_time(anchor) / 1e3
+        else:
+            def host_s(t: float) -> float:
+                return t
+        if not self._device_lane:
+            self._device_lane = True
+            self.thread_name(DEVICE_TID, "device")
+        for name, args, start, end in pending:
+            t0 = host_s(start)
+            self.complete(name, t0, host_s(end) - t0, cat="device", tid=DEVICE_TID, args=args)
+        if self._cuda:
+            with self._lock:
+                self._spare_events.extend(ev for _, _, start, end in pending for ev in (start, end))
 
     def complete(self, name: str, start_s: float, dur_s: float, *,
                  cat: str = "", tid: int = 0,
@@ -155,9 +233,11 @@ class NullTracer:
 
     events: tuple = ()
 
-    @contextlib.contextmanager
-    def span(self, name, *, cat="", tid=None, args=None):
-        yield self
+    def span(self, name, *, cat="", tid=None, args=None, device=False):
+        return _NULL_SPAN
+
+    def flush(self) -> None:
+        pass
 
     def now_s(self) -> float:
         return 0.0
@@ -184,6 +264,7 @@ class NullTracer:
 
 
 NULL_TRACER = NullTracer()
+_NULL_SPAN = contextlib.nullcontext(NULL_TRACER)
 _current = NULL_TRACER
 
 
@@ -195,3 +276,16 @@ def get_tracer():
 def set_tracer(tracer) -> None:
     global _current
     _current = tracer if tracer is not None else NULL_TRACER
+
+
+@contextlib.contextmanager
+def using(tracer):
+    """Make ``tracer`` the ambient tracer inside the block; the one before it
+    comes back on leaving, also when the block raises."""
+    global _current
+    previous = _current
+    set_tracer(tracer)
+    try:
+        yield tracer
+    finally:
+        _current = previous

@@ -36,7 +36,6 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 INT8_MAX = 127.0
 _EPS = 1e-20
@@ -50,17 +49,13 @@ INT_MM_ROW_MULTIPLE = 32
 INT_MM_WIDTH_MULTIPLE = 8
 
 # _int_mm calls made by int8 products on CUDA since the last reset (read by
-# chip_smoke.py and launch/profile_serve.py).
+# chip_smoke.py).
 int_mm_calls = 0
-# Profiler ranges of an int8 product's two stages (launch/profile_serve.py).
-RANGES = ("int8_quantize", "int8_int_mm")
 
 
 def reset_counts() -> None:
     global int_mm_calls
     int_mm_calls = 0
-# Profiler ranges of an int8 product's two stages (launch/profile_serve.py).
-RANGES = ("int8_quantize", "int8_int_mm")
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -189,14 +184,18 @@ def int8_accumulate(
     accumulator [..., f], x's row scales [..., 1] and w's scales, shaped to
     broadcast against the accumulator's last axis.  With a ``split``, of
     the whole operands that ``x`` and ``w`` are parts of."""
-    with record_function("int8_quantize"):
+    # Imported here: repro_torch.obs imports the configs, which import this module.
+    from repro_torch.obs import get_tracer
+
+    tracer = get_tracer()
+    with tracer.span("int8_quantize", device=True):
         if split is None:
             xq, xs = quantize_rows(x)
             wq, ws = _quantize_weight(w, per_channel, experts)
         else:
             xq, xs, wq, ws = _quantize_split(x, w, per_channel, split)
     d, f = w.shape[-2:]
-    with record_function("int8_int_mm"):
+    with tracer.span("int8_int_mm", device=True):
         if not experts:
             acc = _int_mm(xq.reshape(-1, d), wq)
             if split is not None and split.kind == "contraction":

@@ -34,7 +34,9 @@ paper's FSA array (``repro_torch.obs.mfu``).  ``stats`` is a property over
 the ``serve_*_total`` counters.  With a real ``Tracer`` installed, phases
 emit live spans and each retired request leaves queued/decode spans on its
 slot's lane.  The telemetry reads nothing from the device beyond the reads
-the engine makes anyway (the sampled tokens).
+the engine makes anyway (the sampled tokens).  Device spans (a vanilla
+step's ``decode_step``, each layer's ``decode_attention``) are timed on the
+device's clock and flushed after each step.
 
 Runs eagerly on ``device`` (the card unless the caller asks for the CPU).
 With ``mesh`` (a ``DeviceMesh`` over ("data", "model"); the params placed by
@@ -64,7 +66,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.collectives import set_mesh
 from repro_torch.models.model import decode_step, init_cache, insert_cache, prefill_step
 from repro_torch.models.parallel import is_dtensor
-from repro_torch.obs import MFUMeter, Registry, get_tracer
+from repro_torch.obs import MFUMeter, Registry, get_tracer, using
 from .serve_step import Executables, SamplingConfig, make_decode_step, new_cache, sample_logits
 
 
@@ -344,9 +346,14 @@ class ServeEngine:
         """Back-fill free slots, then advance every live slot one token.
 
         Returns True while work remains (live slots or queued requests).
+        The engine's tracer is the ambient one inside the step, so the
+        model's device spans reach it; they are flushed at the step's end,
+        where the device has already caught up with the host's last read.
         """
-        with set_mesh(self.mesh):
-            return self._step()
+        with set_mesh(self.mesh), using(self.tracer):
+            more = self._step()
+        self.tracer.flush()
+        return more
 
     def _step(self) -> bool:
         if self.cache is None:
@@ -389,7 +396,8 @@ class ServeEngine:
             tokens = torch.as_tensor(self._next_tok[:, None], device=self.device)
             positions = torch.as_tensor(self._positions, device=self.device)
             self._executables.see("generate", self.cache, tokens, positions)
-            nt, _logits, self.cache = self._decode(self.params, self.cache, tokens, positions, self._generator)
+            with self.tracer.span("decode_step", args={"live": len(live)}, device=True):
+                nt, _logits, self.cache = self._decode(self.params, self.cache, tokens, positions, self._generator)
             nt = nt[:, 0].cpu().numpy()  # waits for the decode result
         now = time.perf_counter()
         self._counters["decode_steps"].inc()

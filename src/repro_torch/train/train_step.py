@@ -8,6 +8,10 @@ int8 gradient compression with error feedback.
 residual, metrics)``) returns new params and state and leaves its inputs as
 they were.
 
+The ambient tracer (``repro_torch.obs``) gets three device spans:
+``forward`` and ``backward`` for each microbatch, and ``optimizer`` around
+the update and the gradient norm.
+
 With DTensor params (a mesh) the gradients take their params' placements
 (a partial sum over the data axes is reduced there), and the new params
 and optimizer state keep the placements of the old, as the reference's
@@ -23,6 +27,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import lm_loss
+from repro_torch.obs import get_tracer
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.optim.grad_compress import compress_with_feedback, dequantize_int8
 
@@ -48,12 +53,15 @@ def _placed_as(new: Any, old: Any) -> Any:
 def value_and_grad(cfg: ModelConfig, params: Any, batch: dict) -> tuple[torch.Tensor, Any]:
     """``lm_loss`` and its gradient, a dict shaped like ``params`` whose
     leaves are in the params' dtypes."""
+    tracer = get_tracer()
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
-        loss = lm_loss(_with_leaves(params, leaves), cfg, batch)
+        with tracer.span("forward", device=True):
+            loss = lm_loss(_with_leaves(params, leaves), cfg, batch)
         # A leaf the loss does not use (the token embedding of an arch fed
         # frame embeddings) gets zeros, as jax.grad gives it.
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        with tracer.span("backward", device=True):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
     grads = [_placed_as(g, p) for g, p in zip(grads, leaves)]
     return loss.detach(), _with_leaves(params, grads)
 
@@ -87,9 +95,10 @@ def make_train_step(
         return loss_sum * inv, tree_map(lambda g: g * inv, grads)
 
     def update(params, opt_state, loss, grads):
-        new_params, new_opt = optimizer.update(grads, opt_state, params)
-        new_params, new_opt = _placed_as(new_params, params), _placed_as(new_opt, opt_state)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+        with get_tracer().span("optimizer", device=True):
+            new_params, new_opt = optimizer.update(grads, opt_state, params)
+            new_params, new_opt = _placed_as(new_params, params), _placed_as(new_opt, opt_state)
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
         return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
 
     if not compress_grads:

@@ -8,9 +8,11 @@ Each step lands in the trainer's metrics registry
 per-step MFU against the paper's FSA array) and, when
 ``TrainerConfig.metrics_jsonl`` is set, as one JSON record per step (the
 reference's keys; ``launch/scrape_log.py`` reads them back).  Each step is a
-``train_step`` span on the ambient tracer.  With ``compress_grads`` the
-gradients go through int8 with error feedback and the residual is part of
-the state and of the checkpoint.  With ``mesh`` (a ``DeviceMesh`` over
+``train_step`` span on the trainer's tracer, which is the ambient one inside
+the step, so the step's device spans (``forward`` and ``backward`` a
+microbatch, ``optimizer``) reach it; they are flushed after the step's loss
+read.  With ``compress_grads`` the gradients go through int8 with error
+feedback and the residual is part of the state and of the checkpoint.  With ``mesh`` (a ``DeviceMesh`` over
 ("data", "model")) the params and the residual are placed per the TP rules
 (``repro_torch.dist.sharding``), the optimizer state per ZeRO-1 and each
 batch over the data axes, and every step runs under the ambient mesh;
@@ -33,7 +35,7 @@ from repro_torch.dist.collectives import full, set_mesh
 from repro_torch.dist.fault import PreemptionHandler, StepWatchdog
 from repro_torch.dist.sharding import batch_pspec, param_shardings, place, zero1_shardings
 from repro_torch.models import init_params
-from repro_torch.obs import MFUMeter, Registry, get_tracer
+from repro_torch.obs import MFUMeter, Registry, get_tracer, using
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.grad_compress import init_residual
 from repro_torch.optim.schedules import cosine_with_warmup
@@ -160,7 +162,8 @@ class Trainer:
                 step = state["step"]
                 batch = self._batch(step)
                 self.watchdog.start_step()
-                with set_mesh(self.mesh), self.tracer.span("train_step", cat="train", tid=0, args={"step": step}):
+                with set_mesh(self.mesh), using(self.tracer), \
+                        self.tracer.span("train_step", cat="train", tid=0, args={"step": step}):
                     if self.tcfg.compress_grads:
                         params, opt, residual, metrics = self.step_fn(
                             state["params"], state["opt"], batch, state["residual"]
@@ -171,6 +174,7 @@ class Trainer:
                         new_state = {"params": params, "opt": opt, "step": step + 1}
                     loss = full(metrics["loss"]).item()  # waits for the step, as block_until_ready
                 dur = self.watchdog.end_step()
+                self.tracer.flush()
                 state = new_state
                 gnorm = full(metrics["grad_norm"]).item()
                 losses.append(loss)

@@ -616,3 +616,52 @@ def test_moe_forward_is_bit_equal_across_calls(cuda_device):
     first = moe.moe_forward(x, params, cfg)
     for _ in range(3):
         assert torch.equal(moe.moe_forward(x, params, cfg), first)
+
+
+def test_device_spans_line_up_with_the_profilers_kernels(cuda_device):
+    """Each device span around a known launch sequence starts within 50 us
+    of its first kernel's start and ends within 50 us of its last kernel's
+    end.  A spin kernel queued ahead of each span keeps the device busy, so
+    the span's events wait on the device as the model's do.  The profiler's
+    clock goes onto the tracer's through the host range that each span
+    opens (``record_function``, the span's name): the tracer's clock read
+    right after the span, less the end of that range."""
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.trace import DEVICE_TID
+
+    x = torch.randn(1024, 1024, device=cuda_device)
+
+    def sequence():
+        return torch.relu(x @ x).sum()
+
+    tr, after, n = Tracer(), {}, 4
+    for _ in range(n):  # the kernels loaded, the tracer's events made
+        with tr.span("warm_up", device=True):
+            sequence()
+    tr.flush()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(n):
+            torch.cuda._sleep(10_000_000)  # ~5 ms of device work queued ahead of the span
+            with tr.span(f"seq{i}", device=True):
+                sequence()
+            after[f"seq{i}"] = tr.now_s()
+            torch.cuda.synchronize()
+        tr.flush()
+    spans = {e["name"]: e for e in tr.events if e.get("ph") == "X" and e["tid"] == DEVICE_TID}
+    events = list(prof.events())
+    ranges = {e.name: e.time_range for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU and e.name in after}
+    ops = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in after
+                 and not getattr(e, "is_user_annotation", False) and "spin_kernel" not in e.name)
+    starts = [ranges[f"seq{i}"].start for i in range(n)] + [float("inf")]
+    for i in range(n):
+        name = f"seq{i}"
+        mine = [(a, b) for a, b in ops if starts[i] <= a < starts[i + 1]]
+        assert len(mine) >= 3, name
+        offset_us = after[name] * 1e6 - ranges[name].end
+        first, last = mine[0][0] + offset_us, max(b for _, b in mine) + offset_us
+        span = spans[name]
+        assert abs(span["ts"] - first) < 50, (name, span["ts"] - first)
+        assert abs(span["ts"] + span["dur"] - last) < 50, (name, span["ts"] + span["dur"] - last)

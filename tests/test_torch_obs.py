@@ -15,7 +15,12 @@ Held here:
   * both launchers' ``--metrics-out`` and ``--trace-out``;
   * ``watch_jit_compiles`` counts the kernel libraries built (a stubbed
     ``nvcc``): one build 1, a rebuilt hash 1 more, a cache hit nothing, each
-    forwarded to the counter.
+    forwarded to the counter;
+  * device spans: on the CPU each is its host interval on the ``device``
+    lane; ``NullTracer.span`` is one shared null context; ``using`` restores
+    the ambient tracer; the engine and the trainer carry their own tracer to
+    the model's and the optimizer's spans, and no device span takes a name
+    that the engine or the trainer gives a host span.
 """
 
 import json
@@ -44,7 +49,10 @@ from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.configs.registry import get_config, get_smoke_config  # noqa: E402
 from repro_torch.launch import scrape_log  # noqa: E402
-from repro_torch.obs import NullTracer, Registry, Tracer, get_tracer, mfu, set_tracer  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models.model import forward  # noqa: E402
+from repro_torch.obs import NullTracer, Registry, Tracer, get_tracer, mfu, set_tracer, using  # noqa: E402
+from repro_torch.obs.trace import DEVICE_TID  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.spec import SpecConfig  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
@@ -107,6 +115,79 @@ def test_null_tracer_and_ambient_tracer():
     finally:
         set_tracer(None)
     assert get_tracer() is null
+
+
+# Host spans of the engine and the trainer, some read by name by the
+# benchmark's readers (perfbench/harness/stats.spans matches names only).
+HOST_SPANS = {"generate", "prefill", "queued", "decode", "train_step", "draft", "verify"}
+
+
+def _device_spans(tr):
+    return [e for e in tr.events if e.get("ph") == "X" and e["tid"] == DEVICE_TID]
+
+
+def test_device_span_on_cpu_is_its_host_interval_on_the_device_lane():
+    tr = Tracer()
+    with tr.span("host", tid=1):
+        with tr.span("on_device", args={"live": 3}, device=True):
+            torch.ones(64).sum()
+    assert [e["name"] for e in tr.events if e.get("ph") == "X"] == ["host"]  # nothing before the flush
+    tr.flush()
+    (dev,) = _device_spans(tr)
+    (host,) = [e for e in tr.events if e.get("name") == "host"]
+    assert dev["name"] == "on_device" and dev["cat"] == "device" and dev["args"] == {"live": 3}
+    assert host["ts"] <= dev["ts"] and dev["ts"] + dev["dur"] <= host["ts"] + host["dur"] + 1e-3
+    assert {"ph": "M", "name": "thread_name", "pid": 0, "tid": DEVICE_TID, "args": {"name": "device"}} in tr.events
+    tr.flush()  # nothing pending: nothing more
+    assert len(_device_spans(tr)) == 1
+
+
+def test_device_span_reaches_torch_profiler():
+    tr = Tracer()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tr.span("device_block", device=True):
+            torch.ones(4).sum()
+    assert "device_block" in {e.key for e in prof.key_averages()}
+
+
+def test_null_tracer_span_is_one_shared_context_and_records_nothing():
+    null = NullTracer()
+    first = null.span("a", tid=1, args={"a": 1})
+    assert null.span("b", device=True) is first and get_tracer().span("c") is first
+    with first as entered:
+        with first:
+            pass
+    assert entered is get_tracer()
+    null.flush()
+    assert null.events == () and null.to_dict() == {"traceEvents": [], "displayTimeUnit": "ms"}
+
+
+def test_using_restores_the_ambient_tracer_also_on_an_exception():
+    outer, inner = Tracer(), Tracer()
+    assert isinstance(get_tracer(), NullTracer)
+    with using(outer):
+        assert get_tracer() is outer
+        with pytest.raises(RuntimeError):
+            with using(inner):
+                assert get_tracer() is inner
+                raise RuntimeError("step failed")
+        assert get_tracer() is outer
+    assert isinstance(get_tracer(), NullTracer)
+
+
+def test_moe_and_int8_stages_are_device_spans():
+    cfg = get_smoke_config("qwen3-moe-235b-a22b", quant="int8")
+    params = init_params(cfg, 0, "cpu")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(1, cfg.vocab_size, (1, 8)))
+    tr = Tracer()
+    with torch.no_grad(), using(tr):
+        forward(params, cfg, tokens=tokens)
+    tr.flush()
+    names = [e["name"] for e in _device_spans(tr)]
+    for stage in ("moe_dispatch", "moe_experts", "moe_combine"):
+        assert names.count(stage) == cfg.num_layers, stage
+    assert names.count("int8_quantize") == names.count("int8_int_mm") > 0
+    assert not [e for e in tr.events if e.get("ph") == "X" and e["tid"] != DEVICE_TID]
 
 
 # -- MFU accounting -----------------------------------------------------------
@@ -264,6 +345,64 @@ def test_trainer_spans(tmp_path):
            tracer=tr, device="cpu")
     steps = [e for e in tr.events if e.get("name") == "train_step"]
     assert [e["args"]["step"] for e in steps] == [0, 1, 2]
+
+
+@pytest.mark.parametrize("spec", [None, 4])
+def test_engine_device_spans_reach_the_engines_tracer(olmo, spec):
+    _, _, cfg, params = olmo
+    tr = Tracer()
+    engine = ServeEngine(cfg, params, batch_size=2, max_len=64, prefill_buckets=(8, 16, 32),
+                         spec=spec and SpecConfig(lookahead=spec), tracer=tr, device="cpu")
+    rng = np.random.default_rng(4)
+    for i, (n, new) in enumerate(SCHEDULE):
+        engine.submit(Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, n), max_new_tokens=new))
+    engine.run()
+    assert isinstance(get_tracer(), NullTracer)  # the ambient tracer was left alone
+    names = [e["name"] for e in _device_spans(tr)]
+    if spec:
+        # decode_step wraps only the vanilla generate's call; the draft's
+        # decode steps still run each layer's decode attention.
+        assert "decode_step" not in names
+        assert names.count("decode_attention") == cfg.num_layers * engine.stats["draft_steps"]
+    else:
+        assert names.count("decode_step") == engine.stats["decode_steps"] > 0
+        assert names.count("decode_attention") == cfg.num_layers * engine.stats["decode_steps"]
+        # Each decode step's device span lies in its generate host span.
+        generate = [e for e in tr.events if e.get("name") == "generate"]
+        steps = [e for e in _device_spans(tr) if e["name"] == "decode_step"]
+        for g, d in zip(generate, steps):
+            assert g["ts"] <= d["ts"] and d["ts"] + d["dur"] <= g["ts"] + g["dur"] + 1e-3
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_trainer_device_spans_split_each_step(tmp_path, microbatches):
+    tr = Tracer()
+    tcfg = TrainerConfig(total_steps=3, ckpt_every=100, ckpt_dir=str(tmp_path / "ck"), log_every=100,
+                         num_microbatches=microbatches)
+    Trainer(get_smoke_config("olmo-1b"), ShapeConfig("t", 16, 2, "train"), tcfg, tracer=tr, device="cpu").run()
+    assert isinstance(get_tracer(), NullTracer)
+    steps = [e for e in tr.events if e.get("name") == "train_step"]
+    assert len(steps) == 3
+    for step in steps:
+        inside = [e["name"] for e in _device_spans(tr)
+                  if step["ts"] <= e["ts"] and e["ts"] + e["dur"] <= step["ts"] + step["dur"] + 1e-3]
+        assert inside == ["forward", "backward"] * microbatches + ["optimizer"]
+
+
+def test_no_device_span_takes_a_host_spans_name(olmo, tmp_path):
+    _, _, cfg, params = olmo
+    tr = Tracer()
+    for spec in (None, SpecConfig(lookahead=2)):
+        engine = ServeEngine(cfg, params, batch_size=2, max_len=64, prefill_buckets=(8, 16, 32), spec=spec,
+                             tracer=tr, device="cpu")
+        engine.submit(Request(rid=0, prompt=np.arange(1, 10), max_new_tokens=4))
+        engine.run()
+    tcfg = TrainerConfig(total_steps=1, ckpt_every=100, ckpt_dir=str(tmp_path / "ck"), log_every=100)
+    Trainer(cfg, ShapeConfig("t", 16, 2, "train"), tcfg, tracer=tr, device="cpu").run()
+    device = {e["name"] for e in _device_spans(tr)}
+    host = {e["name"] for e in tr.events if e.get("ph") == "X" and e["tid"] != DEVICE_TID}
+    assert device == {"decode_step", "decode_attention", "forward", "backward", "optimizer"}
+    assert HOST_SPANS <= host and not device & host
 
 
 # -- the launchers ----------------------------------------------------------------
