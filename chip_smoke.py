@@ -76,10 +76,23 @@ non-zero):
                at 2**26 fp32 elements and at the tune path's 30,720 beside
                the plain version, torch.exp2 (a bandwidth reference; no
                PyTorch call computes the PWL) and the bound.
+ 5b. kernels_decode — the decode-attention kernel against its plain version
+               (the reference's masked einsums over the cache widened to
+               fp32) in fp32 before the cast, within 2e-6 of each case's
+               largest output: chat's cache (128 slots of 2048, 16 KV heads
+               of 128, bf16), qwen3-moe's rep 16 at S 1 and 5, zamba2's d
+               64, reps 7 and 8, d 16, 80 and 192, fp32 and bf16, lengths
+               of 0, max_len - 1, max_len and past it; one launch a call.
+               Then timed at chat's shape with every slot full and with
+               chat-like lengths, in event and device time, beside its
+               byte bound, the plain version and one masked
+               F.scaled_dot_product_attention call (a yardstick only; the
+               port never calls it).
   6. serve   — full-width olmo-1b in bf16 with seeded random weights served
                by ServeEngine, unchunked and with prefill_chunk=512; the
                kernels' launch counts are reset before and read after, and
-               must equal one sm90 launch per layer per prefill chunk.  One
+               must equal one sm90 launch per layer per prefill chunk, and
+               one decode-attention launch per layer per decode step.  One
                request's prefill logits are held against the naive-attention
                path on the card.
  12. spec    — (runs after serve, greedy and moe) speculative decoding
@@ -95,9 +108,9 @@ non-zero):
                draft steps a draft span, and the registry's serve_*_total
                counters must equal engine.stats; its MFU gauges are printed
                (against the paper's FSA array, not the card).  fp32 gate
-               (after greedy): the greedy phase's prompts and one of 505
-               tokens (its second round writes past the 512-slot cache and
-               drops rows), self-draft and int8 draft under "none" and
+               (after greedy): the greedy phase's prompts and one of 508
+               tokens (its first round writes past the 512-slot cache and
+               drops a row), self-draft and int8 draft under "none" and
                self-draft under "int8-kv-only": tokens equal the vanilla
                engine's but at a near-tie (the greedy phase's rule); all
                prefills simt.  MoE (after moe): qwen3-moe at full width,
@@ -258,6 +271,7 @@ from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.pwl_exp2 import LOG2_E, fp16_negative_normals, pwl_error_stats  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as decode_attn  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_source  # noqa: E402
@@ -1042,6 +1056,152 @@ def time_pwl() -> list[dict]:
         rows.append(row)
     return rows
 
+
+# -- phase 5b: the decode-attention kernel ---------------------------------------------
+
+# (batch, max_len, kv_heads, rep, S, d, dtype): chat's cache (olmo-1b, 128
+# slots of 2048), qwen3-moe's rep 16 at a decode step and a verify of 5
+# rows, zamba2's d 64, qwen2-vl's rep 7, yi-9b's rep 8, the fp32 smoke
+# models' d 16, hubert's d 80 and d 192.
+DECODE_SWEEP = (
+    (128, 2048, 16, 1, 1, 128, torch.bfloat16), (8, 2048, 4, 16, 1, 128, torch.bfloat16),
+    (8, 2048, 4, 16, 5, 128, torch.bfloat16), (16, 1024, 32, 1, 1, 64, torch.bfloat16),
+    (4, 500, 4, 7, 1, 128, torch.bfloat16), (4, 300, 4, 8, 2, 128, torch.float32),
+    (4, 64, 2, 2, 5, 16, torch.float32), (4, 300, 16, 1, 3, 80, torch.bfloat16),
+    (4, 300, 4, 1, 1, 192, torch.float32), (4, 300, 4, 2, 1, 192, torch.bfloat16),
+)
+# Kernel vs plain version in fp32 before the cast, as a share of the case's
+# largest |plain| output: both widen the same values exactly and sum in
+# fp32; only the order of the sums differs.
+TOL_DECODE = 2e-6
+CHAT_CACHE = (128, 2048, 16, 128)  # slots, rows, KV heads, d (bf16)
+
+
+def _decode_inputs(case, gen, lengths=None):
+    """Random q and cache; per-slot lengths (default: random, with 0,
+    max_len - 1, max_len and past it)."""
+    b, max_len, kv_heads, rep, s_new, d, dtype = case
+    q = _randn((b, s_new, kv_heads * rep, d), gen, dtype)
+    k, v = (_randn((b, max_len, kv_heads, d), gen, dtype) for _ in range(2))
+    if lengths is None:
+        lengths = np.random.default_rng(b * max_len + d).integers(0, max_len + 1, b)
+        lengths[:4] = (0, max_len - 1, max_len, max_len + 37)[:b]
+    return q, k, v, torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def check_decode_sweep() -> float:
+    """Each DECODE_SWEEP case through the kernel (one launch) against the
+    plain version; the worst error as a share of its case's largest
+    output."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    for case in DECODE_SWEEP:
+        q, k, v, wp = _decode_inputs(case, gen)
+        scale = case[5] ** -0.5
+        before = decode_attn.launches
+        out = decode_attn.decode_attention_fwd(q, k, v, wp, scale)
+        torch.cuda.synchronize()
+        if decode_attn.launches != before + 1:
+            raise AssertionError(f"{case} did not launch the decode-attention kernel once")
+        ref = decode_attn.decode_attention_plain(q, k, v, wp, scale)
+        err = float((out - ref).abs().max() / ref.abs().max())
+        emit("kernels_decode", case=[*case[:6], str(case[6]).split(".")[1]], err_of_largest=err, tol=TOL_DECODE)
+        if not err <= TOL_DECODE:
+            raise AssertionError(f"decode attention {case}: {err} of the largest output > {TOL_DECODE}")
+        worst = max(worst, err)
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def chat_lengths(seed: int = 5) -> np.ndarray:
+    """Chat-like cached lengths of CHAT_CACHE's slots: 92 of 128 live at 200
+    to 1299 rows (the cell's slot occupancy, ~72%), the rest retired past
+    the cache (they still decode, up to the clamp)."""
+    rng = np.random.default_rng(seed)
+    slots, rows = CHAT_CACHE[:2]
+    lengths = np.concatenate([rng.integers(200, 1300, 92), rows + rng.integers(0, 500, slots - 92)])
+    rng.shuffle(lengths)
+    return lengths
+
+
+def time_decode() -> list[dict]:
+    """The kernel at chat's cache with every slot full and with chat-like
+    lengths: event and device time beside its bound (the rows it reads,
+    K and V once, at HBM's rate; operations at the CUDA cores' fp32 rate),
+    the plain version and one masked SDPA call over the same cache."""
+    slots, rows, kv_heads, d = CHAT_CACHE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    timing = []
+    for name, lengths in (("full", np.full(slots, rows)), ("chat", chat_lengths())):
+        q, k, v, wp = _decode_inputs((slots, rows, kv_heads, 1, 1, d, torch.bfloat16), gen, lengths)
+        scale = d ** -0.5
+        read = int((np.minimum(lengths, rows - 1) + 1).sum())  # rows each slot sees
+        nbytes = 2 * read * kv_heads * d * 2 + q.numel() * 2 + q.numel() * 4
+        flops = 4 * read * kv_heads * d
+        bound_ms, bound_by = _bound(flops, nbytes, PEAK_FP32_FLOPS)
+        kernel = lambda: decode_attn.decode_attention_fwd(q, k, v, wp, scale)  # noqa: E731
+        mask = torch.arange(rows, device="cuda")[None, None, None, :] <= wp.long()[:, None, None, None]
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)  # noqa: E731
+        ms, (device_ms, kernels) = cuda_ms(kernel), profiled(kernel)
+        library_ms, (library_device_ms, library_kernels) = cuda_ms(library, iters=5), profiled(library, iters=5)
+        row = dict(lengths=name, shape=[slots, rows, kv_heads, d], dtype="bfloat16", rows_read=read,
+                   rows_read_share=read / (slots * rows), ms=ms, device_ms=device_ms, kernels=kernels,
+                   plain_ms=cuda_ms(lambda: decode_attn.decode_attention_plain(q, k, v, wp, scale),
+                                    iters=3, warmup=1),
+                   library_ms=library_ms, library_device_ms=library_device_ms, library_kernels=library_kernels,
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+                   device_share_of_bound=bound_ms / device_ms, device_tb_per_s=nbytes / device_ms / 1e9,
+                   splits=decode_attn.split_plan(slots * kv_heads, rows, torch.cuda.get_device_properties(0)
+                                                 .multi_processor_count))
+        emit("kernels_decode", timing=row)
+        timing.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return timing
+
+
+# Small batches, every slot full, where the split along the rows has to
+# fill the card: chip_smoke's 4-slot olmo-1b serve, qwen3-moe's 8 slots at
+# rep 16 (a decode step and a verify of 5 rows); chat's 128 slots beside
+# them.
+SPLIT_SHAPES = (
+    (4, 2048, 16, 1, 1, 128, torch.bfloat16), (8, 2048, 4, 16, 1, 128, torch.bfloat16),
+    (8, 2048, 4, 16, 5, 128, torch.bfloat16), (128, 2048, 16, 1, 1, 128, torch.bfloat16),
+)
+
+
+def time_decode_splits() -> list[dict]:
+    """Each SPLIT_SHAPES case with ``split_plan``'s split and with one split
+    a (slot, KV head): event and device time beside the byte bound."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan, rows = decode_attn.split_plan, []
+    for case in SPLIT_SHAPES:
+        b, max_len, kv_heads, rep, s_new, d, dtype = case
+        q, k, v, wp = _decode_inputs(case, gen, np.full(b, max_len - s_new))
+        nbytes = 2 * k.numel() * k.element_size() + q.numel() * (q.element_size() + 4)
+        kernel = lambda: decode_attn.decode_attention_fwd(q, k, v, wp, d ** -0.5)  # noqa: E731
+        ctas = b * kv_heads * -(-rep * s_new // decode_attn.Q_ROWS_PER_CTA)
+        row = dict(case=[*case[:6], str(dtype).split(".")[1]], bound_ms=nbytes / PEAK_BYTES * 1e3,
+                   plan=plan(ctas, max_len, sms))
+        try:
+            for name in ("plan", "one"):
+                if name == "one":
+                    decode_attn.split_plan = lambda ctas, max_len, sms: (1, max_len)
+                row[f"{name}_ms"] = cuda_ms(kernel)
+                row[f"{name}_device_ms"] = profiled_ms(kernel)
+        finally:
+            decode_attn.split_plan = plan
+        row["one_over_plan"] = row["one_device_ms"] / row["plan_device_ms"]
+        emit("kernels_decode", splits=row)
+        rows.append(row)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
 # -- phase 6: serve -------------------------------------------------------------
 
 SERVE_PROMPT_LENS = (64, 1536, 200, 700, 96, 1100, 400, 1400)
@@ -1069,9 +1229,21 @@ def _expected_launches(engine: ServeEngine, prompts, cfg) -> int:
     return total
 
 
+def _expected_decode_launches(engine: ServeEngine, cfg, prompts) -> int:
+    """Decode-attention kernel launches of an engine's run: one an attention
+    layer (or application of zamba2's shared block) a decode step, verify or
+    draft step; the recurrent families also prefill through decode steps,
+    one a token of each prompt's bucket."""
+    stats = engine.stats
+    steps = stats["decode_steps"] + stats.get("verify_steps", 0) + stats.get("draft_steps", 0)
+    if cfg.family in ("hybrid", "ssm"):
+        steps += sum(engine.bucket_for(len(p)) for p in prompts)
+    return _attn_layers(cfg) * steps
+
+
 def _path_counts() -> dict:
     """The MoE dispatches by mode, the share of (token, expert) copies
-    dropped by capacity, and the _int_mm calls since the last reset."""
+    dropped by capacity and the _int_mm calls since the last reset."""
     copies = moe.counts["copies_capacity"] + moe.counts["copies_dropless"]
     return dict(moe_calls={m: moe.counts[m] for m in ("capacity", "dropless")},
                 moe_dropped_share=moe.dropped_copies() / copies if copies else 0.0,
@@ -1080,6 +1252,7 @@ def _path_counts() -> dict:
 
 def reset_path_counts() -> None:
     reset_fwd_counts()
+    decode_attn.launches = 0
     moe.reset_counts()
     quantize.reset_counts()
 
@@ -1186,7 +1359,7 @@ def serve(cfg, params, phase: str = "serve", *, mesh=None, chunks=(None, 512), v
     warm.run()
     del warm  # its cache must not count in the runs' peak memory
 
-    runs, launches, outputs = [], 0, {}
+    runs, launches, decode_total, outputs = [], 0, 0, {}
     for chunk in chunks:
         engine = ServeEngine(cfg, params, batch_size=4, max_len=2048,
                              prefill_chunk=chunk, device="cuda", mesh=mesh)
@@ -1209,7 +1382,12 @@ def serve(cfg, params, phase: str = "serve", *, mesh=None, chunks=(None, 512), v
             )
         if len(done) != len(prompts) or any(len(r.output) != MAX_NEW for r in done):
             raise AssertionError(f"engine finished {len(done)} requests, not all with {MAX_NEW} tokens")
+        decode_launches = decode_attn.launches
+        if decode_launches != _expected_decode_launches(engine, cfg, prompts):
+            raise AssertionError(f"decode attention launched {decode_launches} times in "
+                                 f"{engine.stats['decode_steps']} decode steps of {_attn_layers(cfg)} layers")
         launches += run_launches
+        decode_total += decode_launches
         outputs[chunk] = {r.rid: r.output for r in done}
         ttft, tpot = request_latencies(done)
         toks = sum(len(r.output) for r in done)
@@ -1221,6 +1399,7 @@ def serve(cfg, params, phase: str = "serve", *, mesh=None, chunks=(None, 512), v
                        [r.t_first_token - r.t_prefill for r in done])) * 1e3,
                    tpot_ms_p50=float(np.median(tpot)) * 1e3,
                    flash_launches=run_launches, flash_launches_by_kernel=by_kernel,
+                   decode_attention_launches=decode_launches,
                    max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
                    **(_path_counts() if cfg.moe is not None or cfg.quant is not None else {}),
                    stats=engine.stats, compile_counts=engine.compile_counts())
@@ -1236,7 +1415,7 @@ def serve(cfg, params, phase: str = "serve", *, mesh=None, chunks=(None, 512), v
     if len(chunks) > 1:
         same = sum(outputs[None][i] == outputs[512][i] for i in outputs[None])
         emit(phase, chunked_equals_unchunked=f"{same}/{len(prompts)} requests")
-    return dict(runs=runs, launches=launches, outputs=outputs,
+    return dict(runs=runs, launches=launches, decode_launches=decode_total, outputs=outputs,
                 prefill_vs_naive=_prefill_vs_naive(cfg, params, prompts[3], phase) if vs_naive else None)
 
 
@@ -1285,10 +1464,13 @@ def greedy(cfg, phase: str = "greedy", prompt_lens=GREEDY_PROMPT_LENS, max_new=M
     done = {r.rid: r.output for r in engine.run()}
     torch.cuda.synchronize()
     by_kernel = dict(flash.launch_counts)
-    engine_counts = _path_counts()
+    engine_counts, decode_launches = _path_counts(), decode_attn.launches
     expected = _expected_launches(engine, prompts, cfg)
     if by_kernel != dict(sm90=0, simt=expected):
         raise AssertionError(f"fp32 prefills launched {by_kernel}, expected {expected} all simt")
+    if decode_launches != _expected_decode_launches(engine, cfg, prompts):
+        raise AssertionError(f"fp32 decode attention launched {decode_launches} times in "
+                             f"{engine.stats['decode_steps']} decode steps")
     near_ties = 0
     with torch.no_grad():
         for i, p in enumerate(prompts):
@@ -1303,8 +1485,8 @@ def greedy(cfg, phase: str = "greedy", prompt_lens=GREEDY_PROMPT_LENS, max_new=M
             near_ties += 1
     emit(phase, arch=cfg.name, layers=cfg.num_layers, requests=len(prompts), tokens_each=max_new,
          near_ties=near_ties, identical=len(prompts) - near_ties, flash_launches_by_kernel=by_kernel,
-         **(engine_counts if cfg.moe is not None else {}))
-    return dict(near_ties=near_ties, launches=by_kernel["simt"])
+         decode_attention_launches=decode_launches, **(engine_counts if cfg.moe is not None else {}))
+    return dict(near_ties=near_ties, launches=by_kernel["simt"], decode_launches=decode_launches)
 
 
 # -- phase 8: train --------------------------------------------------------------
@@ -1577,9 +1759,11 @@ def moe_phase() -> dict:
 # -- phase 12: speculative decoding and telemetry ----------------------------------------
 
 SPEC_K = 4
-# The greedy phase's prompts (the same rng), and one of 505 tokens: in a
-# 512-slot cache its second round writes past capacity and drops rows.
-SPEC_GREEDY_PROMPT_LENS = GREEDY_PROMPT_LENS + (505,)
+# The greedy phase's prompts (the same rng), and one of CAPACITY_PROMPT
+# tokens: in a 512-slot cache its first verify round writes rows 508 to 512
+# and drops the last, whatever the draft's acceptance.
+CAPACITY_PROMPT = 508
+SPEC_GREEDY_PROMPT_LENS = GREEDY_PROMPT_LENS + (CAPACITY_PROMPT,)
 
 
 def _spec_run(cfg, params, prompts, spec, *, batch_size, max_len, chunk=None, tracer=None, record=False,
@@ -1611,7 +1795,7 @@ def _spec_run(cfg, params, prompts, spec, *, batch_size, max_len, chunk=None, tr
     done = engine.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = dict(flash=dict(flash.launch_counts), **_path_counts())
+    counts = dict(flash=dict(flash.launch_counts), decode_attention_launches=decode_attn.launches, **_path_counts())
     return engine, {r.rid: r for r in done}, dt, counts, rounds
 
 
@@ -1637,7 +1821,7 @@ def spec_serve(cfg, params, vanilla: dict) -> dict:
     and its telemetry checked."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SERVE_PROMPT_LENS]
-    runs, launches, telemetry, outputs = [], 0, None, {}
+    runs, launches, decode_launches, telemetry, outputs = [], 0, 0, None, {}
     for draft_quant in (None, "int8"):
         spec = SpecConfig(lookahead=SPEC_K, draft_quant=draft_quant)
         # Warm-up (not counted, not timed): the draft policy's first calls.
@@ -1652,7 +1836,12 @@ def spec_serve(cfg, params, vanilla: dict) -> dict:
                                      f"(draft_quant={draft_quant}, prefill_chunk={chunk})")
             if len(done) != len(prompts) or any(len(r.output) != MAX_NEW for r in done.values()):
                 raise AssertionError(f"spec engine finished {len(done)} requests, not all with {MAX_NEW} tokens")
+            if counts["decode_attention_launches"] != _expected_decode_launches(engine, cfg, prompts):
+                raise AssertionError(f"spec decode attention launched {counts['decode_attention_launches']} times "
+                                     f"in {engine.stats['verify_steps']} verify and {engine.stats['draft_steps']} "
+                                     f"draft steps of {_attn_layers(cfg)} layers")
             launches += expected
+            decode_launches += counts["decode_attention_launches"]
             same = sum(done[i].output == vanilla[chunk][i] for i in done)
             run = _spec_row(cfg, engine, done, dt, counts, "self" if draft_quant is None else "self@int8", chunk,
                             equal_to_vanilla=f"{same}/{len(done)} requests")
@@ -1663,7 +1852,8 @@ def spec_serve(cfg, params, vanilla: dict) -> dict:
                 telemetry = check_telemetry(engine, tracer)
                 second_wave(engine, cfg, "spec", f"{cfg.name}_spec_self")
             del engine, done  # its caches must not count in the next run's peak
-    return dict(runs=runs, launches=launches, telemetry=telemetry, outputs=outputs)
+    return dict(runs=runs, launches=launches, decode_launches=decode_launches, telemetry=telemetry,
+                outputs=outputs)
 
 
 def _spec_row(cfg, engine, done, dt, counts, draft, chunk, **more) -> dict:
@@ -1767,8 +1957,9 @@ def spec_greedy(cfg, prompt_lens=SPEC_GREEDY_PROMPT_LENS, policies=("none", "int
             near_ties += 1
         row.update(near_ties=near_ties, identical=len(prompts) - near_ties)
         emit(phase, fp32_gate=row)
-        if 505 in prompt_lens and not (dropped > 0 and len(done[prompt_lens.index(505)].output) == 512 - 505 + 1):
-            raise AssertionError(f"the 505-token request did not run into the cache's capacity: {row}")
+        if CAPACITY_PROMPT in prompt_lens and not (
+                dropped > 0 and len(done[prompt_lens.index(CAPACITY_PROMPT)].output) == 512 - CAPACITY_PROMPT + 1):
+            raise AssertionError(f"the {CAPACITY_PROMPT}-token request did not run into the cache's capacity: {row}")
         rows.append(row)
     del params
     return dict(rows=rows, launches=launches)
@@ -1824,7 +2015,7 @@ def _recurrent_prompts(cfg, seed: int, lens=RECURRENT_PROMPT_LENS) -> list:
 def recurrent_serve(cfg, params, prompt_lens=RECURRENT_PROMPT_LENS) -> dict:
     """The requests through ServeEngine: tokens/s, TTFT, prefill, TPOT,
     peak memory, _int_mm calls; no flash launch (the scan prefill and
-    decode attend by the grouped product)."""
+    decode attend through the decode-attention kernel)."""
     prompts = _recurrent_prompts(cfg, 0, prompt_lens)
     warm = ServeEngine(cfg, params, device="cuda", **RECURRENT_ENGINE)
     warm.submit(Request(rid=-1, prompt=prompts[0], max_new_tokens=2))
@@ -1852,11 +2043,14 @@ def recurrent_serve(cfg, params, prompt_lens=RECURRENT_PROMPT_LENS) -> dict:
                # A request's TPOT also spans the other requests' prefills
                # (each seconds long); the batched decode step alone:
                decode_step_ms_p50=engine.registry.get("serve_tpot_seconds").percentile(50) * 1e3,
-               flash_launches_by_kernel=by_kernel,
+               flash_launches_by_kernel=by_kernel, decode_attention_launches=decode_attn.launches,
                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, stats=engine.stats)
     emit("recurrent", serve=row)
     if sum(by_kernel.values()) != 0:
         raise AssertionError(f"{cfg.name} serving launched flash kernels: {by_kernel}")
+    if row["decode_attention_launches"] != _expected_decode_launches(engine, cfg, prompts):
+        raise AssertionError(f"{cfg.name} decode attention launched {row['decode_attention_launches']} times, "
+                             f"expected {_expected_decode_launches(engine, cfg, prompts)}")
     if cfg.quant is not None and row["int_mm_calls"] == 0:
         raise AssertionError(f"{cfg.name} under {row['quant']} made no _int_mm call")
     if len(done) != len(prompts) or any(len(r.output) != RECURRENT_MAX_NEW for r in done):
@@ -2409,6 +2603,10 @@ def main() -> None:
     pwl_compared, pwl_err = check_pwl()
     pwl_timing = time_pwl()
     built("kernels_pwl")
+    decode_err = check_decode_sweep()
+    decode_timing = time_decode()
+    decode_splits = time_decode_splits()
+    built("kernels_decode")
 
     cfg = get_config("olmo-1b")
     params = init_params(cfg, seed=0, device="cuda")
@@ -2556,6 +2754,24 @@ def main() -> None:
         # No single PyTorch call computes the PWL exp2; torch.exp2 on the
         # same tensor is in by_size as a bandwidth reference.
         library_ms=None, elements=path_size["elements"], by_size=pwl_timing,
+    ))
+    # Replaces no TPU kernel: the reference's decode attention is a
+    # jnp.einsum pair (src/repro/models/attention.py:319-329).
+    decode_full = next(r for r in decode_timing if r["lengths"] == "full")
+    decode_by_path = dict(serve=served["decode_launches"], spec_serve=specced["decode_launches"],
+                          greedy=greedied["decode_launches"])
+    records.append(dict(
+        name="decode_attention",
+        variant="simt: rows split across CTAs, 16-byte register loads of bf16/fp32, fp32 online softmax, "
+                "a combine kernel over the splits",
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu", replaces=None,
+        launches=sum(decode_by_path.values()), launches_by_path=decode_by_path,
+        max_err_of_largest=decode_err, tol=TOL_DECODE,
+        ms=decode_full["ms"], device_ms=decode_full["device_ms"], plain_ms=decode_full["plain_ms"],
+        bound_ms=decode_full["bound_ms"], bound_by=decode_full["bound_by"],
+        library_ms=decode_full["library_ms"], library_device_ms=decode_full["library_device_ms"],
+        library_kernels=decode_full["library_kernels"], shape=decode_full["shape"], by_lengths=decode_timing,
+        splits=decode_splits,
     ))
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -29,7 +29,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd", "flash_bwd", "pwl_exp2")
+SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd", "flash_bwd", "pwl_exp2", "decode_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -11,8 +11,11 @@
   * ``naive`` — materialised softmax (the oracle).
 
 Per the paper §8.3, decode (one query token, memory-bound) never uses the
-FSA path: ``decode_attention`` is a grouped matmul and softmax over the
-cache, as in the reference.
+FSA path: ``decode_attention`` and ``verify_attention`` attend through
+``kernels.decode_attention`` (the reference's grouped matmul and fp32
+softmax over the cache: the hand-written split-row kernel on the card,
+which reads only the rows each query sees, and the reference's masked
+einsums on the CPU).
 
 The KV cache is updated in place: ``prefill_attention`` writes the chunk's
 rows, ``decode_attention`` scatters one row per slot and
@@ -21,7 +24,7 @@ of the cache it is given (the reference returns updated copies).  Under a quant
 policy with ``kv_cache`` the cache is a ``QuantKVCache``: K and V are
 quantized on write (one scale per token and kv head), prefill attends over
 the dequantized span in x's dtype and decode over the dequantized cache in
-fp32, as in the reference.
+fp32, as in the reference (through ``kernels.decode_attention`` too).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import naive_attention
+from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.obs import get_tracer
 from repro_torch.quant import dequantize_kv, get_quant, quantize_kv
@@ -261,23 +265,12 @@ def verify_attention(
         leaf = getattr(cache, name)
         keep = dropped.reshape(b, s_new, *[1] * (new.dim() - 2))
         leaf[slot, target] = torch.where(keep, leaf[slot, target], new.to(leaf.dtype))
-    if isinstance(cache, QuantKVCache):
-        k, v = dequantize_kv(cache.k, cache.k_scale), dequantize_kv(cache.v, cache.v_scale)
-    else:
-        k, v = cache.k.float(), cache.v.float()
-
-    # GQA via a grouped product over [B, S, Hkv, rep, d]: K/V are never
-    # repeated rep times.  Query j sees the keys up to its own row.
-    rep = cfg.num_heads // cfg.num_kv_heads
-    qg = q.reshape(b, s_new, cfg.num_kv_heads, rep, hd).float()
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))  # fp32, as the reference
-    s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k) * scale
-    valid = (
-        torch.arange(max_len, device=x.device)[None, None, None, None, :]
-        <= rows[:, None, None, :, None]
-    )
-    s = torch.where(valid, s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhrqk,bkhd->bqhrd", p, v).to(x.dtype)
-    o = o.reshape(b, s_new, cfg.num_heads * hd)
+    k, v = cache.k, cache.v
+    if isinstance(cache, QuantKVCache):
+        # The reference's fp32 dequantize; q widened to match (as the plain
+        # version widens it anyway).
+        k, v, q = dequantize_kv(k, cache.k_scale), dequantize_kv(v, cache.v_scale), q.float()
+    o = decode_attention_fwd(q, k, v, write_pos, scale)
+    o = o.to(x.dtype).reshape(b, s_new, cfg.num_heads * hd)
     return get_quant(cfg).dot(o, params["wo"], "attention"), cache

@@ -19,7 +19,10 @@ to bf16 as product operands; against the fp32-P plain version the sm90 pair
 is held to 1e-3 + ``kernel_bwd.departure_bound`` + 2**-7 relative
 (departure (e)).  The PWL exp2 kernel is held
 to its plain version bit for bit: both round the multiply and the add
-separately and the result once to the output's type.
+separately and the result once to the output's type.  The decode-attention
+kernel is held to its plain version in fp32 before the cast to 2e-6 of the
+case's largest output: both widen the same values exactly and sum in fp32,
+in another order.
 """
 
 import dataclasses
@@ -665,3 +668,168 @@ def test_device_spans_line_up_with_the_profilers_kernels(cuda_device):
         span = spans[name]
         assert abs(span["ts"] - first) < 50, (name, span["ts"] - first)
         assert abs(span["ts"] + span["dur"] - last) < 50, (name, span["ts"] + span["dur"] - last)
+
+
+# -- decode attention (kernels/csrc/decode_attention.cu) ---------------------
+
+# (batch, max_len, kv_heads, rep, S, d, dtype): chat's cache (olmo-1b, 128
+# slots of 2048), qwen3-moe's rep 16 at a decode step and a verify of 5
+# rows, zamba2's d 64, qwen2-vl's rep 7, yi-9b's rep 8, the fp32 smoke
+# models' d 16, hubert's d 80 and d 192.
+DECODE_CASES = [
+    (128, 2048, 16, 1, 1, 128, torch.bfloat16),
+    (8, 2048, 4, 16, 1, 128, torch.bfloat16),
+    (8, 2048, 4, 16, 5, 128, torch.bfloat16),
+    (16, 1024, 32, 1, 1, 64, torch.bfloat16),
+    (4, 500, 4, 7, 1, 128, torch.bfloat16),
+    (4, 300, 4, 8, 2, 128, torch.float32),
+    (4, 64, 2, 2, 5, 16, torch.float32),
+    (4, 300, 16, 1, 3, 80, torch.bfloat16),
+    (4, 300, 4, 1, 1, 192, torch.float32),
+    (4, 300, 4, 2, 1, 192, torch.bfloat16),
+]
+
+
+def _decode_inputs(case, device, seed=0):
+    """Random q and cache, and per-slot lengths that include 0, one row
+    short of the cache, the whole cache and past it (a retired slot)."""
+    b, max_len, kv_heads, rep, s_new, d, dtype = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, s_new, kv_heads * rep, d), generator=gen, device=device).to(dtype)
+    k, v = (torch.randn((b, max_len, kv_heads, d), generator=gen, device=device).to(dtype) for _ in range(2))
+    lengths = np.random.default_rng(seed).integers(0, max_len + 1, b)
+    lengths[:4] = (0, max_len - 1, max_len, max_len + 37)[:b]
+    return q, k, v, torch.as_tensor(lengths, dtype=torch.int32, device=device)
+
+
+def _decode_err(out, ref):
+    """Largest |kernel - plain| over 2e-6 of the largest |plain| output of
+    the case: both widen the same values exactly and sum in fp32; only the
+    order of the sums differs (the online softmax's rescaled partial sums
+    and the merge of the splits against the plain version's one pass)."""
+    return float((out - ref).abs().max() / (2e-6 * ref.abs().max()))
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "x".join(map(str, c[:6])) + str(c[6])[-4:])
+def test_decode_attention_matches_plain(cuda_device, case):
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
+
+    q, k, v, write_pos = _decode_inputs(case, cuda_device)
+    scale = case[5] ** -0.5
+    before = decode_kernel.launches
+    out = decode_kernel.decode_attention_fwd(q, k, v, write_pos, scale)
+    torch.cuda.synchronize()
+    assert decode_kernel.launches == before + 1
+    ref = decode_kernel.decode_attention_plain(q, k, v, write_pos, scale)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert _decode_err(out, ref) <= 1.0
+
+
+def test_decode_attention_takes_a_cache_cut_to_some_kv_heads(cuda_device):
+    """A strided view (two of four KV heads, as a mesh island cuts them)
+    reads what a dense copy of it reads."""
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
+
+    q, k, v, write_pos = _decode_inputs((4, 300, 4, 2, 2, 128, torch.bfloat16), cuda_device)
+    q, k, v = q[:, :, :4], k[:, :, 1:3], v[:, :, 1:3]
+    got = decode_kernel.decode_attention_fwd(q, k, v, write_pos, 0.1)
+    torch.testing.assert_close(got, decode_kernel.decode_attention_fwd(
+        q.contiguous(), k.contiguous(), v.contiguous(), write_pos, 0.1), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["fp16", "head_dim", "d_strided", "misaligned", "device"])
+def test_decode_attention_refuses_what_it_cannot_take(cuda_device, bad):
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
+
+    q, k, v, write_pos = _decode_inputs((2, 64, 2, 2, 1, 64, torch.bfloat16), cuda_device)
+    if bad == "fp16":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "head_dim":
+        q, k, v = q[..., :60], k[..., :60].contiguous(), v[..., :60].contiguous()
+    elif bad == "d_strided":
+        k = k.transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "misaligned":
+        flat = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda_device)
+        k = flat[1:].view(k.shape).copy_(k)
+    else:
+        q = q.cpu()
+    before = decode_kernel.launches
+    with pytest.raises(ValueError):
+        decode_kernel.decode_attention_fwd(q, k, v, write_pos, 0.125)
+    assert decode_kernel.launches == before
+
+
+@pytest.mark.parametrize("s_new", [1, 5])
+def test_an_int8_cache_attends_through_the_kernel(cuda_device, monkeypatch, s_new):
+    """An int8 KV cache, dequantized to fp32 as the reference does, goes
+    through the kernel (one launch a layer call) and gives the plain
+    version's output within 2e-6 of the largest, before the cast."""
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
+    from repro_torch.models import attention
+
+    cfg = get_smoke_config("olmo-1b", "int8-kv-only")
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    params = attention.attention_params(gen, cfg, torch.float32)
+    x = torch.randn((4, s_new, cfg.d_model), generator=gen, device=cuda_device)
+    write_pos = torch.tensor([0, 9, 30, 40], dtype=torch.int32, device=cuda_device)
+    positions = write_pos[:, None] + torch.arange(s_new, device=cuda_device, dtype=torch.int32)
+
+    def run():
+        cache = attention.init_kv_cache(cfg, 4, 32, torch.float32, cuda_device)
+        for payload, scales in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
+            payload.copy_(torch.randint(-127, 128, payload.shape, generator=gen, device=cuda_device))
+            scales.uniform_(0.001, 0.02, generator=gen)
+        before = decode_kernel.launches
+        out, _ = attention.verify_attention(x, params, cfg, cache, positions, write_pos)
+        return out, decode_kernel.launches - before
+
+    gen.manual_seed(5)
+    got, launches = run()
+    assert launches == 1
+    with monkeypatch.context() as m:
+        m.setattr(attention, "decode_attention_fwd", decode_kernel.decode_attention_plain)
+        gen.manual_seed(5)
+        ref, plain_launches = run()
+    assert plain_launches == 0
+    assert _decode_err(got, ref) <= 1.0
+
+
+def test_chat_shaped_decode_through_the_engine_equals_the_plain_path(cuda_device, monkeypatch):
+    """Eight decode steps of 128 slots of 2048 (olmo-1b's heads, two layers,
+    fp32) through ``ServeEngine``: one kernel launch a layer a step, and the
+    greedy tokens of the same engine with the plain version in the kernel's
+    place, but where the plain path's top two logits at the first
+    difference lie within 1e-3 (fp32 sums in another order move a logit by
+    ~1e-6)."""
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
+    from repro_torch.models import attention
+    from repro_torch.models.model import forward
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), num_layers=2, dtype="float32")
+    params = init_params(cfg, 0, device=cuda_device)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in rng.integers(1, 1500, 128)]
+    steps = 8
+
+    def run():
+        engine = ServeEngine(cfg, params, batch_size=128, max_len=2048, device=cuda_device)
+        for i, p in enumerate(prompts):
+            engine.submit(Request(rid=i, prompt=p, max_new_tokens=steps + 1))
+        before = decode_kernel.launches
+        done = {r.rid: r.output for r in engine.run()}
+        return done, decode_kernel.launches - before, engine.stats["decode_steps"]
+
+    got, launches, decode_steps = run()
+    assert decode_steps == steps and launches == cfg.num_layers * steps
+    with monkeypatch.context() as m:
+        m.setattr(attention, "decode_attention_fwd", decode_kernel.decode_attention_plain)
+        ref, plain_launches, _ = run()
+    assert plain_launches == 0
+    for i, p in enumerate(prompts):
+        if got[i] == ref[i]:
+            continue
+        t = next(j for j, (a, b) in enumerate(zip(got[i], ref[i])) if a != b)
+        context = torch.as_tensor(np.concatenate([p, ref[i][:t]]), device=cuda_device)[None]
+        with torch.no_grad():
+            top = torch.topk(forward(params, cfg, tokens=context)[0, -1].float(), 2).values
+        assert float(top[0] - top[1]) <= 1e-3, (i, t, got[i], ref[i])
